@@ -4,7 +4,8 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. print the card's name and power limit (nvidia-smi);
-  2. build the ROIAlign CUDA kernel (K1) from weakcube_tpu_torch/csrc;
+  2. build the ROIAlign (K1) and flash-attention (K2) CUDA kernels from
+     weakcube_tpu_torch/csrc, one nvcc each, in parallel;
   3. hold K1 against its plain PyTorch version at the main path's shapes
      (b8, levels 128^2..8^2 x 256, R = 1000 and 100), with edge-case boxes,
      in float32 and bfloat16;
@@ -16,7 +17,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      pyramid and boxes; check a small float32 model on the card against the
      same model on the CPU;
   6. time the forward, K1, its plain version and a library yardstick;
-  7. print the kernels line and, last, {"ok": true, "device": {...}}.
+  7. hold K2 against its plain PyTorch version at B16 H16 d64 with
+     N = 1370, 50, 197 and 1, in bfloat16 and float32;
+  8. the depth pseudo-GT path at full width: Depth Anything V2 ViT-L
+     (random weights from a seed) at 518 px through
+     data/generate_depth_maps.py::generate() on 32 synthetic 640x480 images
+     (two batches of 16); check the 32 depth maps and that K2 launched 24
+     times per forward; hold K2 against the plain version on one block's
+     own q, k, v from that run; a small float32 ViT-S on the card against
+     the CPU at 98 and 196 px;
+  9. time the depth forward (B16), K2, its plain version and
+     F.scaled_dot_product_attention as a yardstick; profile one forward;
+ 10. print the kernels line and, last, {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -29,15 +41,21 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores (K1's arithmetic is float32 FMA on the CUDA cores)
+# outside the tensor cores (K1's arithmetic is float32 FMA on the CUDA
+# cores), dense bf16 FLOP/s on the tensor cores (K2's products)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 K1_REPLACES = "weakcube_tpu/ops/roi_align_pallas.py:198"
 K1_SOURCE = "weakcube_tpu_torch/csrc/roi_align.cu"
+K2_REPLACES = "weakcube_tpu/data/pseudo_gt/depth_anything_v2.py:37"
+K2_SOURCE = "weakcube_tpu_torch/csrc/flash_attention.cu"
+DEPTH_BATCH, DEPTH_SIZE, DEPTH_IMAGES = 16, 518, 32
 
 
 def fail(msg: str) -> None:
@@ -72,6 +90,19 @@ def roi_align_bound(levels, boxes, out_size: int, sr: int):
     ops = n_out * (sr * sr * 4 * 2 + 1)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound(q):
+    """Least time for one attention call on (B, H, N, d) q, k, v: the two
+    products (4 B H N^2 d FLOPs) on the bf16 tensor cores against q, k, v
+    read once and o written once. Also returns the exponentials it takes
+    (B H N^2), which run on the SFU beside the products."""
+    B, H, N, d = q.shape
+    flops = 4 * B * H * N * N * d
+    nbytes = 4 * q.numel() * q.element_size()
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes, B * H * N * N)
 
 
 def library_roi_align(levels, boxes, strides, out_size: int, sr: int):
@@ -186,6 +217,159 @@ def edge_boxes(B, R, size, gen, device):
     return b.contiguous()
 
 
+def depth_phases(dev):
+    """Phases 7-9: K2 against its plain version, the depth pseudo-GT path at
+    full width, the small depth model card vs CPU, timings. Returns K2's
+    entry of the kernels line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from weakcube_tpu_torch.data import synthetic
+    from weakcube_tpu_torch.data.generate_depth_maps import generate, load_model
+    from weakcube_tpu_torch.ops import flash_attention_cuda, roi_align_cuda
+
+    K2 = flash_attention_cuda.flash_attention
+    plain = flash_attention_cuda.plain
+    scale = 64 ** -0.5
+    # bf16: P and O are each rounded to bf16 once, in other places than the
+    # plain version's (probabilities after normalising, output after the
+    # product), so they differ by about a bf16 step of |o| <= max |v|;
+    # float32: the same math in another order with an online softmax
+    tols = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-5, 1e-5)}
+    errs = []
+
+    # -- 7. K2 against its plain version at the path's shape and ragged N ---
+    print("[compare] K2 vs plain, B16 H16 d64")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for dt in (torch.bfloat16, torch.float32):
+        for N in (1370, 50, 197, 1):
+            q, k, v = (torch.randn((16, 16, N, 64), generator=gen, device=dev).to(dt)
+                       for _ in range(3))
+            got = K2(q, k, v, scale)
+            torch.cuda.synchronize()
+            if got.shape != q.shape or got.dtype != dt:
+                fail(f"K2 output {tuple(got.shape)} {got.dtype}")
+            errs.append(check_close(f"{str(dt)[6:]} N={N}", got, plain(q, k, v, scale),
+                                    *tols[dt]))
+            del q, k, v, got
+
+    # -- 8. the depth path: ViT-L through generate() ------------------------
+    t = time.time()
+    model = load_model(None, "vitl", 20.0, DEPTH_SIZE, device=dev)
+    torch.cuda.synchronize()
+    print(f"[depth model] DepthAnythingV2 vitl (1024 wide, 24 blocks, 16 heads, DPT 256), "
+          f"{DEPTH_SIZE} px, {next(model.parameters()).dtype}, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
+          f"built in {time.time() - t:.1f} s")
+    captured = []
+    blk = 11
+    attn = model.pretrained.blocks[blk].attn
+
+    def grab_qkv(mod, inputs, out):
+        if not captured:
+            B, N, _ = out.shape
+            qkv = out.reshape(B, N, 3, attn.heads, -1).permute(2, 0, 3, 1, 4)
+            captured.extend(t.contiguous() for t in qkv.unbind(0))
+    hook = attn.qkv.register_forward_hook(grab_qkv)
+    records = synthetic.make_dataset(DEPTH_IMAGES)
+    out_dir = tempfile.mkdtemp(prefix="depth_maps_")
+    roi_align_cuda.multilevel_roi_align.launches = K2.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    generate(records, out_dir, batch_size=DEPTH_BATCH,
+             image_loader=lambda r: synthetic.render_image(r["_scene"]), model=model)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    k2_launches = K2.launches
+    hook.remove()
+    n_fwd = -(-DEPTH_IMAGES // DEPTH_BATCH)
+    depth_blocks = len(model.pretrained.blocks)
+    if k2_launches != depth_blocks * n_fwd:
+        fail(f"K2 launched {k2_launches} times in {n_fwd} forwards, expected "
+             f"{depth_blocks} per forward")
+    stds = []
+    for r in records:
+        path = os.path.join(out_dir, f"{r['image_id']}.npz")
+        if not os.path.exists(path):
+            fail(f"generate() wrote no {path}")
+        with np.load(path) as z:
+            d = z["depth"]
+        if d.shape != (r["height"], r["width"]) or d.dtype != np.float16:
+            fail(f"{path}: depth {d.shape} {d.dtype}, expected "
+                 f"({r['height']}, {r['width']}) float16")
+        if not np.isfinite(d).all() or d.min() < 0 or d.max() > 20:
+            fail(f"{path}: depth not finite or outside [0, 20] m")
+        stds.append(float(d.astype(np.float32).std()))
+    shutil.rmtree(out_dir)
+    if min(stds) <= 1e-3:
+        fail(f"degenerate depth maps (least std {min(stds):.2e} m)")
+    print(f"[depth] generate(): {len(records)} maps of {records[0]['height']}x"
+          f"{records[0]['width']} float16 in {gen_s:.3f} s ({len(records) / gen_s:.2f} "
+          f"images/s end to end, synthetic rendering and npz writes included); depth std "
+          f"{min(stds):.4f}-{max(stds):.4f} m; K2 launches {k2_launches} "
+          f"({depth_blocks} per forward)")
+    q, k, v = captured
+    print(f"[compare] K2 vs plain on block {blk}'s own q, k, v of that run "
+          f"({tuple(q.shape)} {q.dtype})")
+    errs.append(check_close(f"block {blk}", K2(q, k, v, scale), plain(q, k, v, scale),
+                            *tols[q.dtype]))
+
+    # a small float32 ViT-S on the card against the same model on the CPU
+    for size in (98, 196):
+        m_gpu = load_model(None, "vits", 20.0, size, device=dev, dtype=torch.float32)
+        m_cpu = load_model(None, "vits", 20.0, size, device="cpu", dtype=torch.float32)
+        x = torch.from_numpy(np.random.default_rng(size).normal(
+            size=(2, size, size, 3)).astype(np.float32))
+        with torch.inference_mode():
+            d_gpu, d_cpu = m_gpu(x.to(dev)).cpu(), m_cpu(x)
+        err = (d_gpu - d_cpu).abs().max().item()
+        # float32 with TF32 off: cuDNN's, cuBLAS's and K2's sums run in
+        # another order than the CPU's
+        if not err <= 1e-3 or not float(d_cpu.std()) > 1e-3:
+            fail(f"small depth model at {size} px: card vs CPU max |err| {err} m "
+                 f"(tolerance 1e-3), CPU depth std {float(d_cpu.std())}")
+        print(f"[reference] small float32 ViT-S at {size} px (N = {(size // 14) ** 2 + 1}), "
+              f"card vs CPU: max |err| {err:.3e} m (atol 1e-3)")
+
+    # -- 9. timing ------------------------------------------------------------
+    batch = torch.randn((DEPTH_BATCH, DEPTH_SIZE, DEPTH_SIZE, 3), generator=gen, device=dev)
+    times = []
+    with torch.inference_mode():
+        for _ in range(4):  # one warm-up + 3 timed
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    fwd_ms = statistics.median(times[1:])
+    print(f"[timing] depth forward B{DEPTH_BATCH} @ {DEPTH_SIZE} px: median {fwd_ms:.3f} ms "
+          f"over {len(times) - 1} (each {', '.join(f'{x:.3f}' for x in times)} ms, first is "
+          f"the warm-up), {DEPTH_BATCH * 1e3 / fwd_ms:.2f} images/s")
+    ms = timed_ms(lambda: K2(q, k, v, scale), 20)
+    plain_ms = timed_ms(lambda: plain(q, k, v, scale), 3, warmup=1)
+    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+    lib_err = (F.scaled_dot_product_attention(q, k, v, scale=scale).float()
+               - plain(q, k, v, scale).float()).abs().max().item()
+    bound, by, flops, nbytes, n_exp = attention_bound(q)
+    print(f"[timing] K2 at {tuple(q.shape)} {q.dtype}: {ms:.4f} ms per launch (bound "
+          f"{bound:.4f} ms by {by}: {flops:.3e} FLOP, {nbytes:.3e} bytes; {n_exp:.3e} "
+          f"exponentials; {100 * bound / ms:.1f}% of the bound), {flops / ms / 1e9:.1f} "
+          f"TFLOP/s; plain {plain_ms:.3f} ms; library (F.scaled_dot_product_attention, a "
+          f"yardstick the port never calls) {lib_ms:.4f} ms, max |err| vs plain {lib_err:.3e}")
+    print(f"[timing] K2 per depth forward: {depth_blocks} launches, "
+          f"{depth_blocks * ms:.3f} ms of the {fwd_ms:.3f} ms forward "
+          f"(bound {depth_blocks * bound:.3f} ms)")
+    profile_forward(model, batch)
+    return {"name": "flash_attention (non-causal attention fwd), per launch at "
+                    f"{'x'.join(map(str, q.shape))} {str(q.dtype)[6:]}",
+            "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "launches": k2_launches, "max_abs_err": max(errs), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
 def main() -> None:
     try:
         import torch
@@ -199,7 +383,7 @@ def main() -> None:
                                               tiny_cfg)
         from weakcube_tpu_torch.models.rcnn3d import build_model
         from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
-        from weakcube_tpu_torch.ops import roi_align_cuda
+        from weakcube_tpu_torch.ops import flash_attention_cuda, roi_align_cuda
     except ImportError as e:
         fail(f"the weakcube_tpu_torch package is not beside this script: {e}")
     # every float32 comparison below runs in full float32
@@ -218,13 +402,18 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # -- 2. build K1 ------------------------------------------------------
+    # -- 2. build K1 and K2, one nvcc each, in parallel ---------------------
     t = time.time()
-    lib_path = roi_align_cuda.build()
-    print(f"[build] K1 {os.path.relpath(lib_path, HERE)} in {time.time() - t:.1f} s")
-    for line in roi_align_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [(name, mod, pool.submit(mod.build))
+                  for name, mod in (("K1", roi_align_cuda), ("K2", flash_attention_cuda))]
+        for name, mod, fut in builds:
+            lib_path = fut.result()
+            print(f"[build] {name} {os.path.relpath(lib_path, HERE)} "
+                  f"(both built in {time.time() - t:.1f} s)")
+            for line in mod.build_log.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"  ptxas: {line.strip()}")
 
     # -- 3. K1 against its plain version at the main path's shapes ---------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -262,7 +451,7 @@ def main() -> None:
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
           f"built in {time.time() - t:.1f} s")
     n_fwd = 4  # one warm-up + 3 timed
-    K1.launches = 0
+    K1.launches = flash_attention_cuda.flash_attention.launches = 0
     times = []
     with torch.inference_mode():
         for i in range(n_fwd):
@@ -364,15 +553,20 @@ def main() -> None:
     print(f"[timing] K1 per forward (box + cube pooler): {tot['ms']:.4f} ms, bound "
           f"{tot['bound_ms']:.4f} ms")
     profile_forward(model, batch)
+    del model, feats, levels, calls, det, det2d, props
+    torch.cuda.empty_cache()
+
+    # -- 7.-9. K2 and the depth pseudo-GT path -------------------------------
+    k2 = depth_phases(dev)
     print(f"[done] total run {time.time() - t_start:.1f} s")
 
-    # -- 7. result lines ----------------------------------------------------
+    # -- 10. result lines ---------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align (ROIAlignV2 fwd), box + cube pooler per forward",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "max_abs_err": max(max_err.values()),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": bound_by, "library_ms": tot["library_ms"]}]}))
+        "bound_by": bound_by, "library_ms": tot["library_ms"]}, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from weakcube_tpu_torch.ops import flash_attention_cuda
 from weakcube_tpu_torch.ops import roi_align as t_ra
 from weakcube_tpu_torch.ops import roi_align_cuda
+from weakcube_tpu_torch.ops.attention import attention
 
 STRIDES = (4, 8, 16, 32, 64)
 pytestmark = pytest.mark.cuda
@@ -102,3 +104,53 @@ def match(a, b, i):
         row[j] = float("inf")
         j.append(int(row.argmin()))
     return torch.tensor(j, dtype=torch.long)
+
+
+@pytest.mark.parametrize("dtype,N", [("bfloat16", 1370), ("bfloat16", 197), ("bfloat16", 50),
+                                     ("bfloat16", 1), ("bfloat16", 64), ("float32", 197),
+                                     ("float32", 1)])
+def test_flash_attention_matches_plain(card, dtype, N):
+    """Ragged key tiles and a single token. bfloat16: P and O are each
+    rounded to bf16 once, in other places than the plain version's
+    (atol 2e-2, rtol 2e-2); float32: the same math in another order, online
+    softmax (atol 1e-5)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(N)
+    q, k, v = (torch.randn((2, 3, N, 64), generator=g, device=card).to(dt) for _ in range(3))
+    before = flash_attention_cuda.flash_attention.launches
+    got = flash_attention_cuda.flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dt
+    want = attention(q, k, v, 0.125)
+    tol = dict(atol=1e-5, rtol=1e-5) if dt == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 2, 10, 64), device=card, dtype=torch.bfloat16)
+    before = flash_attention_cuda.flash_attention.launches
+    with pytest.raises(TypeError):
+        flash_attention_cuda.flash_attention(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(2, 3).contiguous().transpose(2, 3)
+        flash_attention_cuda.flash_attention(t, t, t, 0.125)
+    with pytest.raises(ValueError, match="expected all"):
+        flash_attention_cuda.flash_attention(q, q, q.cpu(), 0.125)
+    assert flash_attention_cuda.flash_attention.launches == before
+
+
+def test_small_depth_model_card_matches_cpu(card):
+    """Depth Anything V2 ViT-S at 98 px (N = 50) in float32 from one seeded
+    state dict, on the card (K2's float32 path, cuDNN convs with TF32 off)
+    and on the CPU (plain attention): depth within 1e-3 m. 12 launches."""
+    from weakcube_tpu_torch.data.generate_depth_maps import load_model
+    m_cpu = load_model(None, "vits", input_size=98, device="cpu", dtype=torch.float32)
+    m_gpu = load_model(None, "vits", input_size=98, device=card, dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 98, 98, 3)).astype(np.float32))
+    before = flash_attention_cuda.flash_attention.launches
+    with torch.inference_mode():
+        d_gpu, d_cpu = m_gpu(x.to(card)), m_cpu(x)
+    assert flash_attention_cuda.flash_attention.launches == before + 12
+    assert float(d_cpu.std()) > 1e-3
+    torch.testing.assert_close(d_gpu.cpu(), d_cpu, atol=1e-3, rtol=0)

@@ -31,7 +31,9 @@ def test_no_jax_imports(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, weakcube_tpu_torch.entry, weakcube_tpu_torch.utils.convert, "
-            "weakcube_tpu_torch.ops.roi_align_cuda; "
+            "weakcube_tpu_torch.ops.roi_align_cuda, weakcube_tpu_torch.ops.flash_attention_cuda, "
+            "weakcube_tpu_torch.data.generate_depth_maps, weakcube_tpu_torch.data.datasets, "
+            "weakcube_tpu_torch.data.synthetic; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -308,6 +308,117 @@ def test_decode_cube_predictions(variant):
         close(a, b, atol=1e-4, rtol=1e-5, msg=name)
 
 
+# ------------------------------------------- bf16 head outputs, stage by stage
+def bf16_pair(x):
+    """The same bfloat16 values for both packages: x rounded to bf16 once."""
+    r = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    return jnp.asarray(r, jnp.bfloat16), torch.from_numpy(r).bfloat16()
+
+
+def as_f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else jnp.asarray(x, jnp.float32))
+
+
+def test_select_proposals_bf16():
+    """bf16 logits and deltas (COMPUTE_DTYPE=bfloat16) with deliberate ties:
+    scores stay bf16 and the float32 anchors promote the decode, in both
+    packages. The same proposals in the same slots: valid and scores
+    exactly, boxes within 1e-3 px."""
+    rng = np.random.default_rng(13)
+    from weakcube_tpu.models import anchors as j_anchors
+    shapes = [(32, 32), (16, 16), (8, 8), (4, 4), (2, 2)]
+    anchors = [np.asarray(a) for a in j_anchors.pyramid_anchors(
+        shapes, [4, 8, 16, 32, 64], [[32], [64], [128], [256], [512]], [[0.5, 1.0, 2.0]])]
+    # logits on a coarse grid: many equal scores within and across levels
+    logits = [bf16_pair(rng.integers(-24, 24, (B, len(a))) / 8.0) for a in anchors]
+    deltas = [bf16_pair(rng.normal(0, 0.5, (B, len(a), 4))) for a in anchors]
+    wh = np.array([[128.0, 128.0], [120.0, 100.0]], np.float32)
+    jp = j_rpn.select_proposals([jnp.asarray(a) for a in anchors], [x[0] for x in logits],
+                                [x[0] for x in deltas], jnp.asarray(wh), 128, 64, 0.7,
+                                approx_topk=False)
+    tp = t_rpn.select_proposals([t(a) for a in anchors], [x[1] for x in logits],
+                                [x[1] for x in deltas], t(wh), 128, 64, 0.7)
+    assert jp.scores.dtype == jnp.bfloat16 and tp.scores.dtype == torch.bfloat16
+    assert jp.boxes.dtype == jnp.float32 and tp.boxes.dtype == torch.float32
+    assert tp.valid.tolist() == np.asarray(jp.valid).tolist()
+    np.testing.assert_array_equal(as_f32(tp.scores), as_f32(jp.scores))
+    close(tp.boxes, jp.boxes, atol=1e-3)
+
+
+def test_fast_rcnn_inference_bf16():
+    """bf16 class logits (with ties) and box deltas: the softmax, top-k and
+    detection scores stay bf16 in both packages. Selected RoIs, classes and
+    valid slots exactly, scores exactly, boxes within 1e-3 px."""
+    rng = np.random.default_rng(15)
+    P = 64
+    js, ts = bf16_pair(rng.integers(-16, 16, (B, P, NCLS + 1)) / 4.0)
+    jdl, tdl = bf16_pair(rng.normal(0, 0.5, (B, P, NCLS * 4)))
+    pboxes = np.concatenate([rng.uniform(0, 90, (B, P, 2))] * 2, -1) \
+        + np.concatenate([np.zeros((B, P, 2)), rng.uniform(5, 40, (B, P, 2))], -1)
+    pboxes = pboxes.astype(np.float32)
+    pvalid = np.arange(P)[None] < np.array([[P], [40]])
+    wh = np.full((B, 2), 128.0, np.float32)
+    jbpc = j_fast_rcnn.predict_boxes(jdl, jnp.asarray(pboxes), NCLS)
+    tbpc = t_fast_rcnn.predict_boxes(tdl, t(pboxes), NCLS)
+    assert jbpc.dtype == jnp.float32 and tbpc.dtype == torch.float32
+    close(tbpc, jbpc, atol=1e-3)
+    jprops = JProposals(jnp.asarray(pboxes), jnp.zeros((B, P)), jnp.asarray(pvalid))
+    tprops = TProposals(t(pboxes), torch.zeros(B, P), t(pvalid))
+    jd, jsel = j_fast_rcnn.fast_rcnn_inference(js, jbpc, jprops, jnp.asarray(wh),
+                                               0.05, 0.5, 16, 1024)
+    td, tsel = t_fast_rcnn.fast_rcnn_inference(ts, tbpc, tprops, t(wh), 0.05, 0.5, 16, 1024)
+    assert int(td.valid.sum()) > 8
+    assert jd.scores.dtype == jnp.bfloat16 and td.scores.dtype == torch.bfloat16
+    assert td.scores_full.dtype == torch.bfloat16
+    assert td.valid.tolist() == np.asarray(jd.valid).tolist()
+    assert td.classes.tolist() == np.asarray(jd.classes).tolist()
+    assert tsel.tolist() == np.asarray(jsel).tolist()
+    np.testing.assert_array_equal(as_f32(td.scores), as_f32(jd.scores))
+    np.testing.assert_array_equal(as_f32(td.scores_full), as_f32(jd.scores_full))
+    close(td.boxes, jd.boxes, atol=1e-3)
+
+
+@pytest.mark.parametrize("variant", ["default", "sigmoid", "log", "clusters"])
+def test_decode_cube_predictions_bf16(variant):
+    """bf16 cube-head outputs: each decoded field has the JAX package's
+    dtype (bf16 until a float32 box, prior or K promotes it) and its values
+    within bf16 rounding: rtol 2e-2, atol 2e-2 (poses, unit-scale fields)
+    and 2e-2 relative for metres and pixels."""
+    rng = np.random.default_rng(18)
+    S, bins = 6, 3
+    cfg = _cube_cfg(variant)
+    z_shape = (B, S, bins, NCLS) if variant == "clusters" else (B, S, NCLS)
+    pose = np.asarray(jax.vmap(j_cube_head.rotations.rotation_6d_to_matrix)(
+        jnp.asarray(rng.normal(size=(B, S, NCLS, 6)).astype(np.float32))))
+    raw = dict(deltas_2d=rng.normal(0, 0.2, (B, S, NCLS, 2)), z_raw=rng.normal(0, 1, z_shape),
+               dims_raw=rng.normal(0, 0.5, (B, S, NCLS, 3)), pose_raw=pose,
+               uncert=rng.uniform(0.01, 2, (B, S, NCLS)))
+    pairs = {k: bf16_pair(x) for k, x in raw.items()}
+    names = ("deltas_2d", "z_raw", "dims_raw", "pose_raw", "uncert")
+    classes = rng.integers(-1, NCLS, (B, S))
+    boxes = np.concatenate([rng.uniform(0, 80, (B, S, 2))] * 2, -1).astype(np.float32)
+    boxes[..., 2:] += rng.uniform(5, 40, (B, S, 2)).astype(np.float32)
+    K = np.tile(np.array([[100.0, 0, 64], [0, 110.0, 60], [0, 0, 1]], np.float32), (B, 1, 1))
+    priors = rng.uniform(0.3, 2, (NCLS, 2, 3)).astype(np.float32)
+    z_scales = rng.uniform(10, 80, (NCLS, bins)).astype(np.float32)
+    z_stats = rng.uniform(1, 5, (NCLS, bins, 2)).astype(np.float32)
+    jdec = j_roi_heads.decode_cube_predictions(
+        *(pairs[k][0] for k in names), jnp.asarray(classes), jnp.asarray(boxes),
+        jnp.asarray(K), cfg, priors, z_scales, z_stats)
+    tdec = t_roi_heads.decode_cube_predictions(
+        *(pairs[k][1] for k in names), t(classes), t(boxes), t(K), cfg, t(priors),
+        t(z_scales), t(z_stats))
+    for name in t_roi_heads.CubeDecode._fields:
+        a, b = getattr(tdec, name), getattr(jdec, name)
+        if name == "cubes":
+            a, b = a.tensor, b.tensor
+        if a is None or b is None:
+            assert a is None and b is None, name
+            continue
+        assert str(a.dtype).split(".")[-1] == str(b.dtype), (name, a.dtype, b.dtype)
+        close(as_f32(a), as_f32(b), atol=2e-2, rtol=2e-2, msg=name)
+
+
 # ------------------------------------------------------ entry points, dtype
 def test_entry_on_cpu_and_no_silent_cpu_fallback():
     """entry() runs on the CPU when asked; with no device given it wants
@@ -324,8 +435,10 @@ def test_entry_on_cpu_and_no_silent_cpu_fallback():
 
 def test_bf16_compute_path():
     """COMPUTE_DTYPE=bfloat16 (the flagship's): parameters stay float32, the
-    pyramid is bf16, and the detections are float32, finite and of the f32
-    model's shapes (the values are not compared: bf16 keeps 8 mantissa bits,
+    pyramid is bf16, and the detections are finite and of the f32 model's
+    shapes, with the JAX package's dtypes: the scores stay bf16, boxes,
+    centres, dims and poses are promoted to float32 by the float32 proposals,
+    priors and K (the values are not compared: bf16 keeps 8 mantissa bits,
     so near-equal scores reorder)."""
     from weakcube_tpu_torch.entry import make_batch
     cfg = tiny_cfg(SIZE, NCLS, dla=True)
@@ -339,6 +452,7 @@ def test_bf16_compute_path():
     assert all(f.dtype == torch.bfloat16 for f in feats.values())
     for name in ("boxes", "scores", "scores3D", "centers3D", "dims3D", "poses3D"):
         a, b = getattr(d16, name), getattr(d32, name)
-        assert a.shape == b.shape and a.dtype == torch.float32, name
+        want = torch.bfloat16 if name in ("scores", "scores3D") else torch.float32
+        assert a.shape == b.shape and a.dtype == want, name
         assert bool(torch.isfinite(a).all()), name
     assert int(d16.valid.sum()) > 0

@@ -9,13 +9,18 @@ numpy and yaml, and nothing of JAX.
 
 Ported so far: the inference forward of the flagship model (meta-arch
 RCNN3D_combined_features + ROIHeads3DScore on DLA + FPN), with the
-multi-level ROIAlignV2 as a CUDA kernel (csrc/roi_align.cu).
+multi-level ROIAlignV2 as a CUDA kernel (csrc/roi_align.cu); and the depth
+pseudo-GT generator (Depth Anything V2, data/generate_depth_maps.py), with
+its attention as a CUDA flash-attention kernel (csrc/flash_attention.cu).
 
 Package layout:
   config/     YAML config system (a copy of the JAX package's)
-  ops/        box, NMS, rotation, cuboid, pooling and ROIAlign ops; the
-              CUDA ROIAlign wrapper (ops/roi_align_cuda.py)
+  ops/        box, NMS, rotation, cuboid, pooling, ROIAlign and attention
+              ops; the CUDA wrappers (ops/roi_align_cuda.py,
+              ops/flash_attention_cuda.py) and their nvcc build (cuda_build.py)
   models/     DLA + FPN backbone, RPN, box and cube heads, meta-archs
+  data/       synthetic scenes, the Omni3D dataset layer, the depth
+              pseudo-GT model (pseudo_gt/) and CLI
   utils/      flax -> torch parameter conversion
   csrc/       CUDA sources, built with nvcc at first use
 """

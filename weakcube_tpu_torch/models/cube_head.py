@@ -4,7 +4,8 @@ Shared or per-branch fc1..fcN feature generator over the flattened 7x7
 pooled features, then per-class linear outputs: 2D centre deltas (C, 2),
 dimensions (C, 3), pose (C, 3, 3) from 6d / quaternion / euler parameters,
 depth (C, bins) and uncertainty (C,), clipped at 0.01. Module names are the
-reference's (feature_generator, bbox_3D_*). Outputs are float32.
+reference's (feature_generator, bbox_3D_*). Outputs stay in the compute
+dtype, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -71,9 +72,9 @@ class CubeHead(nn.Module):
                 for b in ("xy", "dims", "pose", "z"))
             f_conf = self.feature_generator_conf(x) if self.use_confidence else None
 
-        deltas_2d = self.bbox_3D_center_deltas(f_xy).float().reshape(lead + (C, 2))
-        dims = self.bbox_3D_dims(f_dims).float().reshape(lead + (C, 3))
-        pose_raw = self.bbox_3D_pose(f_pose).float().reshape(
+        deltas_2d = self.bbox_3D_center_deltas(f_xy).reshape(lead + (C, 2))
+        dims = self.bbox_3D_dims(f_dims).reshape(lead + (C, 3))
+        pose_raw = self.bbox_3D_pose(f_pose).reshape(
             lead + (C, _POSE_DIM[self.pose_type]))
         if self.pose_type == "6d":
             pose = rotations.rotation_6d_to_matrix(pose_raw)
@@ -85,7 +86,7 @@ class CubeHead(nn.Module):
         else:
             pose = rotations.euler_angles_to_matrix(pose_raw, "XYZ")
 
-        z = self.bbox_3D_center_depth(f_z).float()
+        z = self.bbox_3D_center_depth(f_z)
         if self.cluster_bins > 1:
             z = z.reshape(lead + (self.cluster_bins, C))
         else:
@@ -93,5 +94,5 @@ class CubeHead(nn.Module):
 
         uncert = None
         if self.use_confidence:
-            uncert = self.bbox_3D_uncertainty(f_conf).float().clamp(min=0.01)
+            uncert = self.bbox_3D_uncertainty(f_conf).clamp(min=0.01)
         return deltas_2d, z, dims, pose, uncert

@@ -54,7 +54,8 @@ def fast_rcnn_inference(scores: torch.Tensor, boxes_per_class: torch.Tensor,
                         topk_per_image: int, candidate_topk: int = 1024):
     """Static-shape per-class NMS inference.
 
-    scores: (B, P, C+1) logits; boxes_per_class: (B, P, C, 4). Candidates
+    scores: (B, P, C+1) logits, whose dtype the probabilities and detection
+    scores keep; boxes_per_class: (B, P, C, 4). Candidates
     are the top `candidate_topk` (roi, class) pairs of each image; those
     above the score threshold enter a class-aware NMS, and the top
     `topk_per_image` survivors become the detections.
@@ -62,7 +63,10 @@ def fast_rcnn_inference(scores: torch.Tensor, boxes_per_class: torch.Tensor,
     """
     B, P, C1 = scores.shape
     C = C1 - 1
-    probs = torch.softmax(scores.float(), dim=-1)
+    # jax.nn.softmax step by step, each step rounded to the logits' dtype
+    # (a fused softmax rounds once and breaks bf16 ties differently)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
     cls_probs = torch.where(proposals.valid[..., None], probs[..., :C],
                             torch.zeros_like(probs[..., :C]))
     flat = cls_probs.reshape(B, P * C)
@@ -72,7 +76,7 @@ def fast_rcnn_inference(scores: torch.Tensor, boxes_per_class: torch.Tensor,
     cls_idx = flat_idx % C
     bidx = torch.arange(B, device=scores.device)[:, None]
     wh = image_wh.float().expand(B, 2)[:, None, :]
-    cand_boxes = box_ops.clip_boxes(boxes_per_class.float()[bidx, roi_idx, cls_idx], wh)
+    cand_boxes = box_ops.clip_boxes(boxes_per_class[bidx, roi_idx, cls_idx], wh)
     # drop non-finite candidates
     finite = torch.isfinite(cand_boxes).all(-1) & torch.isfinite(top_p)
     cand_valid = (top_p > score_thresh) & finite

@@ -190,7 +190,7 @@ class ROIHeadsCommon(nn.Module):
         pooled = self._pool(features, proposals.boxes,
                             self.cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION)
         scores, deltas = self.box_predictor(self.box_head(pooled))
-        boxes_pc = predict_boxes(deltas.float(), proposals.boxes, self.num_classes,
+        boxes_pc = predict_boxes(deltas, proposals.boxes, self.num_classes,
                                  tuple(self.cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS))
         return fast_rcnn_inference(
             scores, boxes_pc, proposals, image_wh,

@@ -58,19 +58,21 @@ def select_proposals(anchors_per_level: List[torch.Tensor],
                      nms_thresh: float,
                      box_reg_weights=(1.0, 1.0, 1.0, 1.0)) -> Proposals:
     """anchors (R_l, 4); logits (B, R_l); deltas (B, R_l, 4); image_wh (B, 2)
-    or (2,). Scores and boxes are computed in float32."""
+    or (2,). Scores stay in the logits' dtype; boxes are float32 (the float32
+    anchors promote the decode), as in the JAX package."""
     B = logits_per_level[0].shape[0]
     wh = image_wh.float().expand(B, 2)[:, None, :]
     ks = [min(pre_nms_topk, l.shape[1]) for l in logits_per_level]
     L, K = len(ks), max(ks)
     dev = logits_per_level[0].device
     boxes = torch.zeros((B, L, K, 4), device=dev)
-    scores = torch.full((B, L, K), nms_ops.NEG_INF, device=dev)
+    scores = torch.full((B, L, K), nms_ops.NEG_INF, dtype=logits_per_level[0].dtype,
+                        device=dev)
     valid = torch.zeros((B, L, K), dtype=torch.bool, device=dev)
     for l, (anchors, logit, delta, k) in enumerate(
             zip(anchors_per_level, logits_per_level, deltas_per_level, ks)):
-        top_scores, idx = nms_ops.topk_stable(logit.float(), k)
-        d = torch.gather(delta.float(), 1, idx[..., None].expand(B, k, 4))
+        top_scores, idx = nms_ops.topk_stable(logit, k)
+        d = torch.gather(delta, 1, idx[..., None].expand(B, k, 4))
         b = box_ops.apply_deltas(d, anchors[idx], box_reg_weights)
         boxes[:, l, :k] = box_ops.clip_boxes(b, wh)
         scores[:, l, :k] = top_scores

@@ -32,8 +32,11 @@ def _allocentric_correction(K: torch.Tensor, u: torch.Tensor,
 
 def R_from_allocentric(K: torch.Tensor, R_view: torch.Tensor,
                        u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Allocentric -> egocentric pose at pixel (u, v): R = M @ R_view."""
-    return _allocentric_correction(K, u, v) @ R_view
+    """Allocentric -> egocentric pose at pixel (u, v): R = M @ R_view, in
+    the promoted dtype of M (float32 K and pixels) and R_view."""
+    M = _allocentric_correction(K, u, v)
+    dt = torch.promote_types(M.dtype, R_view.dtype)
+    return M.to(dt) @ R_view.to(dt)
 
 
 def scaled_sigmoid(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,94 @@
+"""Non-causal attention through the CUDA kernel csrc/flash_attention.cu.
+
+`flash_attention(q, k, v, scale)` is the attention the Depth Anything V2
+encoder calls, on (B, H, N, 64) tensors. For CUDA tensors it launches the
+kernel (bfloat16 on the tensor cores, float32 on a plain f32 path) and
+raises if it cannot; for CPU tensors it runs the plain PyTorch version
+(ops/attention.py, re-exported here as `plain`). There is no fallback from
+the card to the plain version.
+
+The kernel is built at first use with nvcc for sm_90a into `build/` at the
+repository root (ops/cuda_build.py) and loaded with ctypes.
+`flash_attention.launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional
+
+import torch
+
+from .attention import attention as plain
+from .cuda_build import CSRC_DIR, build_library
+
+SOURCE = os.path.join(CSRC_DIR, "flash_attention.cu")
+HEAD_DIM = 64
+MAX_BATCH_HEADS = 65535  # the grid's y extent
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""
+
+
+def build() -> str:
+    """Compile csrc/flash_attention.cu into build/ unless this source's
+    library is there already; returns the library's path. The compiler's
+    report (registers, spills) is kept in `build_log`."""
+    global build_log
+    lib_path, log = build_library(SOURCE)
+    build_log = log or build_log
+    return lib_path
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        P = ctypes.c_void_p
+        lib.flash_attention_forward.argtypes = [
+            ctypes.c_int, P, P, P, P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, P]
+        lib.flash_attention_forward.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q, k, v must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or q.shape[-1] != HEAD_DIM or q.shape[2] < 1:
+        raise ValueError(f"q of shape {tuple(q.shape)} is not (B, H, N >= 1, {HEAD_DIM})")
+    if q.shape[0] * q.shape[1] > MAX_BATCH_HEADS:
+        raise ValueError(f"B * H = {q.shape[0] * q.shape[1]} exceeds {MAX_BATCH_HEADS}")
+    for t in (q, k, v):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError("q, k and v must share one device, dtype and shape")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("q, k and v must be contiguous and 16-byte aligned")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (B, H, N, 64) tensors, in their dtype.
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return plain(q, k, v, scale)
+    if any(t.device.type != "cuda" for t in (q, k, v)):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}: expected all "
+                         "on the CPU or all on one CUDA device")
+    _check(q, k, v)
+    B, H, N, d = q.shape
+    out = torch.empty_like(q)
+    lib = _load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_forward(
+            0 if q.dtype == torch.float32 else 1, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B * H, N, d, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_forward failed with CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -6,42 +6,26 @@ plain PyTorch version (ops/roi_align.py, re-exported here as `plain`). There
 is no fallback from the card to the plain version.
 
 The kernel is built at first use with nvcc for sm_90a into `build/` at the
-repository root (named by a hash of the source, so an edit rebuilds) and
-loaded with ctypes. `multilevel_roi_align.launches` counts kernel launches.
+repository root (ops/cuda_build.py) and loaded with ctypes.
+`multilevel_roi_align.launches` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 from typing import Optional, Sequence
 
 import torch
 
+from .cuda_build import CSRC_DIR, build_library
 from .roi_align import multilevel_roi_align as plain
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "roi_align.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+SOURCE = os.path.join(CSRC_DIR, "roi_align.cu")
 MAX_LEVELS = 8
 MAX_SAMPLES = 128
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the ROIAlign CUDA kernel cannot be built")
 
 
 def build() -> str:
@@ -49,18 +33,8 @@ def build() -> str:
     there already; returns the library's path. The compiler's report
     (registers, spills) is kept in `build_log`."""
     global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"libroi_align_{digest}.so")
-    if not os.path.exists(lib_path):
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-        os.replace(tmp, lib_path)
+    lib_path, log = build_library(SOURCE)
+    build_log = log or build_log
     return lib_path
 
 

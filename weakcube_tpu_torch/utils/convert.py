@@ -17,6 +17,9 @@ proposal_generator.rpn_head.objectness_logits, cube_head/shared_fcN ->
 cube_head.feature_generator.fcN. It is the inverse of
 weakcube_tpu/utils/zoo_convert.py, extended to every DLA block type and to
 unshared cube-head branches.
+
+`dav2_flax_to_torch(params, variant)` does the same for the Depth Anything
+V2 pseudo-GT model (below).
 """
 from __future__ import annotations
 
@@ -91,4 +94,71 @@ def flax_to_torch(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tens
             sd[name + ".num_batches_tracked"] = torch.tensor(0)
         else:
             raise KeyError(f"unknown flax layer at {'/'.join(path)}: {sorted(leaf)}")
+    return sd
+
+
+def _dav2_conv(sd: Dict[str, torch.Tensor], name: str, leaf: Mapping) -> None:
+    """flax Conv (kh, kw, in, out) -> torch Conv2d (out, in, kh, kw)."""
+    sd[name + ".weight"] = _t(np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in leaf:
+        sd[name + ".bias"] = _t(leaf["bias"])
+
+
+def dav2_flax_to_torch(params: Mapping, variant: str = "vitl") -> Dict[str, torch.Tensor]:
+    """The JAX package's DepthAnythingV2 parameter tree (nested dicts of
+    numpy arrays, as its .npz checkpoints hold them) -> the state dict of
+    data/pseudo_gt/depth_anything_v2.py::DepthAnythingV2, whose names are
+    the released checkpoint's. The inverse of weakcube_tpu's
+    `convert_torch_checkpoint`. refinenet4's resConfUnit1, which the model
+    never computes with and the flax tree does not hold, comes out as
+    zeros."""
+    from ..data.pseudo_gt.depth_anything_v2 import VIT_SPECS
+    _, depth, _, features, _ = VIT_SPECS[variant]
+    bb, hd = params["backbone"], params["head"]
+    sd: Dict[str, torch.Tensor] = {}
+    _dav2_conv(sd, "pretrained.patch_embed.proj", bb["patch_embed"])
+    sd["pretrained.cls_token"] = _t(bb["cls_token"])
+    sd["pretrained.pos_embed"] = _t(bb["pos_embed"])
+
+    def dense(name, leaf):
+        sd[name + ".weight"] = _t(np.asarray(leaf["kernel"]).T)
+        sd[name + ".bias"] = _t(leaf["bias"])
+
+    def norm(name, leaf):
+        sd[name + ".weight"] = _t(leaf["scale"])
+        sd[name + ".bias"] = _t(leaf["bias"])
+
+    for i in range(depth):
+        blk, pre = bb[f"block{i}"], f"pretrained.blocks.{i}."
+        norm(pre + "norm1", blk["norm1"])
+        dense(pre + "attn.qkv", blk["attn"]["qkv"])
+        dense(pre + "attn.proj", blk["attn"]["proj"])
+        sd[pre + "ls1.gamma"] = _t(blk["ls1_gamma"])
+        norm(pre + "norm2", blk["norm2"])
+        dense(pre + "mlp.fc1", blk["mlp_fc1"])
+        dense(pre + "mlp.fc2", blk["mlp_fc2"])
+        sd[pre + "ls2.gamma"] = _t(blk["ls2_gamma"])
+    norm("pretrained.norm", bb["norm"])
+
+    for i in range(4):
+        _dav2_conv(sd, f"depth_head.projects.{i}", hd[f"project{i}"])
+        _dav2_conv(sd, f"depth_head.scratch.layer{i + 1}_rn", hd[f"scratch{i}"])
+    for i in (0, 1):  # ConvTranspose2d (in, out, kh, kw) from (kh, kw, in, out)
+        sd[f"depth_head.resize_layers.{i}.weight"] = _t(
+            np.asarray(hd[f"resize{i}"]["kernel"]).transpose(2, 3, 0, 1))
+        sd[f"depth_head.resize_layers.{i}.bias"] = _t(hd[f"resize{i}"]["bias"])
+    _dav2_conv(sd, "depth_head.resize_layers.3", hd["resize3"])
+    for i in range(4):
+        rn = f"depth_head.scratch.refinenet{i + 1}."
+        for unit, key in (("resConfUnit1", f"rcu_skip{i}"), ("resConfUnit2", f"rcu_out{i}")):
+            for c in ("conv1", "conv2"):
+                if key in hd:
+                    _dav2_conv(sd, rn + f"{unit}.{c}", hd[key][c])
+                else:
+                    sd[rn + f"{unit}.{c}.weight"] = torch.zeros(features, features, 3, 3)
+                    sd[rn + f"{unit}.{c}.bias"] = torch.zeros(features)
+        _dav2_conv(sd, rn + "out_conv", hd[f"fusion_out{i}"])
+    _dav2_conv(sd, "depth_head.scratch.output_conv1", hd["out_conv1"])
+    _dav2_conv(sd, "depth_head.scratch.output_conv2.0", hd["out_conv2"])
+    _dav2_conv(sd, "depth_head.scratch.output_conv2.2", hd["out_conv3"])
     return sd
