@@ -18,16 +18,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      same model on the CPU;
   6. time the forward, K1, its plain version and a library yardstick;
   7. hold K2 against its plain PyTorch version at B16 H16 d64 with
-     N = 1370, 50, 197 and 1, in bfloat16 and float32;
+     N = 1, 50, 63, 64, 65, 127, 128, 129, 197 and 1370 (the tile edges and
+     ragged tiles), in bfloat16 and float32, on contiguous q, k, v and on
+     the views of a fused (B, N, 3, H, 64) projection that the encoder
+     passes;
   8. the depth pseudo-GT path at full width: Depth Anything V2 ViT-L
      (random weights from a seed) at 518 px through
      data/generate_depth_maps.py::generate() on 32 synthetic 640x480 images
      (two batches of 16); check the 32 depth maps and that K2 launched 24
      times per forward; hold K2 against the plain version on one block's
-     own q, k, v from that run; a small float32 ViT-S on the card against
-     the CPU at 98 and 196 px;
-  9. time the depth forward (B16), K2, its plain version and
-     F.scaled_dot_product_attention as a yardstick; profile one forward;
+     own q, k, v from that run (contiguous copies and the projection's own
+     views); a small float32 ViT-S on the card against the CPU at 98 and
+     196 px;
+  9. time the depth forward (B16), K2 (on block 11's q, k, v made
+     contiguous, and on the path's own strided views) and
+     F.scaled_dot_product_attention as a yardstick in turns, and K2's plain
+     version; profile one forward and
+     count its layout copies (at most 28: no q, k, v or output copies
+     around K2);
  10. print the kernels line and, last, {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -51,6 +59,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# SFU exponentials per second: 16 ex2 per clock per SM, 132 SMs, 1.98 GHz
+# boost (H100 SXM)
+PEAK_EX2_PER_S = 16 * 132 * 1.98e9
 K1_REPLACES = "weakcube_tpu/ops/roi_align_pallas.py:198"
 K1_SOURCE = "weakcube_tpu_torch/csrc/roi_align.cu"
 K2_REPLACES = "weakcube_tpu/data/pseudo_gt/depth_anything_v2.py:37"
@@ -96,13 +107,15 @@ def attention_bound(q):
     """Least time for one attention call on (B, H, N, d) q, k, v: the two
     products (4 B H N^2 d FLOPs) on the bf16 tensor cores against q, k, v
     read once and o written once. Also returns the exponentials it takes
-    (B H N^2), which run on the SFU beside the products."""
+    (B H N^2) and their least time on the SFU, which runs beside the
+    tensor cores."""
     B, H, N, d = q.shape
     flops = 4 * B * H * N * N * d
     nbytes = 4 * q.numel() * q.element_size()
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    n_exp = B * H * N * N
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes, B * H * N * N)
+            flops, nbytes, n_exp, n_exp / PEAK_EX2_PER_S * 1e3)
 
 
 def library_roi_align(levels, boxes, strides, out_size: int, sr: int):
@@ -175,7 +188,10 @@ def match_detections(a, b, i):
 
 def profile_forward(model, batch, top: int = 12):
     """torch.profiler over one forward: the device's busy share of the
-    forward's wall time and the kernels that take most of it."""
+    forward's wall time and the kernels that take most of it. Returns the
+    number of layout-copy kernels launched (PyTorch's `direct_copy_kernel`,
+    which `.contiguous()` and copying reshapes run; None where the profiler
+    saw no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
@@ -190,13 +206,17 @@ def profile_forward(model, batch, top: int = 12):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print("[profile] the profiler recorded no device time: busy share not measured")
-        return
+        return None
+    copies = [e for e in kernels if "direct_copy_kernel" in e.key]
+    n_copies = sum(e.count for e in copies)
     print(f"[profile] one forward under the profiler: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), idle "
-          f"{100 * (1 - busy_us / wall_us):.1f}%, {sum(e.count for e in kernels)} kernel launches")
+          f"{100 * (1 - busy_us / wall_us):.1f}%, {sum(e.count for e in kernels)} kernel launches, "
+          f"{n_copies} of them layout copies ({sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / busy_us:5.1f}%"
               f" x{e.count:<5d} {e.key[:110]}")
+    return n_copies
 
 
 def edge_boxes(B, R, size, gen, device):
@@ -242,19 +262,21 @@ def depth_phases(dev):
     errs = []
 
     # -- 7. K2 against its plain version at the path's shape and ragged N ---
-    print("[compare] K2 vs plain, B16 H16 d64")
+    print("[compare] K2 vs plain, B16 H16 d64, contiguous and projection views")
     gen = torch.Generator(device=dev).manual_seed(1)
     for dt in (torch.bfloat16, torch.float32):
-        for N in (1370, 50, 197, 1):
-            q, k, v = (torch.randn((16, 16, N, 64), generator=gen, device=dev).to(dt)
-                       for _ in range(3))
-            got = K2(q, k, v, scale)
-            torch.cuda.synchronize()
-            if got.shape != q.shape or got.dtype != dt:
-                fail(f"K2 output {tuple(got.shape)} {got.dtype}")
-            errs.append(check_close(f"{str(dt)[6:]} N={N}", got, plain(q, k, v, scale),
-                                    *tols[dt]))
-            del q, k, v, got
+        for N in (1, 50, 63, 64, 65, 127, 128, 129, 197, 1370):
+            qkv = torch.randn((16, N, 3 * 16 * 64), generator=gen, device=dev).to(dt)
+            views = qkv.reshape(16, N, 3, 16, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            for layout, (q, k, v) in (("contiguous", [t.contiguous() for t in views]),
+                                      ("views", views)):
+                got = K2(q, k, v, scale)
+                torch.cuda.synchronize()
+                if got.shape != q.shape or got.dtype != dt or not got.transpose(1, 2).is_contiguous():
+                    fail(f"K2 output {tuple(got.shape)} {got.dtype} strides {got.stride()}")
+                errs.append(check_close(f"{str(dt)[6:]} N={N} {layout}", got,
+                                        plain(q, k, v, scale), *tols[dt]))
+            del qkv, views, q, k, v, got
 
     # -- 8. the depth path: ViT-L through generate() ------------------------
     t = time.time()
@@ -270,9 +292,7 @@ def depth_phases(dev):
 
     def grab_qkv(mod, inputs, out):
         if not captured:
-            B, N, _ = out.shape
-            qkv = out.reshape(B, N, 3, attn.heads, -1).permute(2, 0, 3, 1, 4)
-            captured.extend(t.contiguous() for t in qkv.unbind(0))
+            captured.append(out.clone())
     hook = attn.qkv.register_forward_hook(grab_qkv)
     records = synthetic.make_dataset(DEPTH_IMAGES)
     out_dir = tempfile.mkdtemp(prefix="depth_maps_")
@@ -311,10 +331,14 @@ def depth_phases(dev):
           f"images/s end to end, synthetic rendering and npz writes included); depth std "
           f"{min(stds):.4f}-{max(stds):.4f} m; K2 launches {k2_launches} "
           f"({depth_blocks} per forward)")
-    q, k, v = captured
+    B_, N_, _ = captured[0].shape
+    views = captured[0].reshape(B_, N_, 3, attn.heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
+    q, k, v = (t.contiguous() for t in views)
     print(f"[compare] K2 vs plain on block {blk}'s own q, k, v of that run "
-          f"({tuple(q.shape)} {q.dtype})")
-    errs.append(check_close(f"block {blk}", K2(q, k, v, scale), plain(q, k, v, scale),
+          f"({tuple(q.shape)} {q.dtype}), as contiguous copies and as the projection's views")
+    errs.append(check_close(f"block {blk} contiguous", K2(q, k, v, scale),
+                            plain(q, k, v, scale), *tols[q.dtype]))
+    errs.append(check_close(f"block {blk} views", K2(*views, scale), plain(q, k, v, scale),
                             *tols[q.dtype]))
 
     # a small float32 ViT-S on the card against the same model on the CPU
@@ -348,21 +372,35 @@ def depth_phases(dev):
     print(f"[timing] depth forward B{DEPTH_BATCH} @ {DEPTH_SIZE} px: median {fwd_ms:.3f} ms "
           f"over {len(times) - 1} (each {', '.join(f'{x:.3f}' for x in times)} ms, first is "
           f"the warm-up), {DEPTH_BATCH * 1e3 / fwd_ms:.2f} images/s")
-    ms = timed_ms(lambda: K2(q, k, v, scale), 20)
+    # K2 and the library call in turns (the card's clock drifts within a run),
+    # five rounds of 20 launches each; the medians are reported
+    calls = {"K2": lambda: K2(q, k, v, scale), "K2 views": lambda: K2(*views, scale),
+             "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)}
+    rounds = {name: [] for name in calls}
+    for r in range(5):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            rounds[name].append(timed_ms(calls[name], 20))
+    ms, views_ms, lib_ms = (statistics.median(rounds[n]) for n in calls)
+    print("[timing] rounds (ms per launch): " + "; ".join(
+        f"{n} {' '.join(f'{x:.4f}' for x in v)}" for n, v in rounds.items()))
     plain_ms = timed_ms(lambda: plain(q, k, v, scale), 3, warmup=1)
-    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20)
     lib_err = (F.scaled_dot_product_attention(q, k, v, scale=scale).float()
                - plain(q, k, v, scale).float()).abs().max().item()
-    bound, by, flops, nbytes, n_exp = attention_bound(q)
-    print(f"[timing] K2 at {tuple(q.shape)} {q.dtype}: {ms:.4f} ms per launch (bound "
-          f"{bound:.4f} ms by {by}: {flops:.3e} FLOP, {nbytes:.3e} bytes; {n_exp:.3e} "
-          f"exponentials; {100 * bound / ms:.1f}% of the bound), {flops / ms / 1e9:.1f} "
+    bound, by, flops, nbytes, n_exp, sfu_ms = attention_bound(q)
+    print(f"[timing] K2 at {tuple(q.shape)} {q.dtype}: {ms:.4f} ms per launch on contiguous "
+          f"q, k, v, {views_ms:.4f} ms on the projection's views (medians; bound {bound:.4f} ms by {by}: "
+          f"{flops:.3e} FLOP, {nbytes:.3e} bytes; {100 * bound / ms:.1f}% of the bound; beside "
+          f"it {n_exp:.3e} exponentials, {sfu_ms:.4f} ms on the SFU), {flops / ms / 1e9:.1f} "
           f"TFLOP/s; plain {plain_ms:.3f} ms; library (F.scaled_dot_product_attention, a "
-          f"yardstick the port never calls) {lib_ms:.4f} ms, max |err| vs plain {lib_err:.3e}")
+          f"yardstick the port never calls) {lib_ms:.4f} ms (median), max |err| vs plain "
+          f"{lib_err:.3e}")
     print(f"[timing] K2 per depth forward: {depth_blocks} launches, "
-          f"{depth_blocks * ms:.3f} ms of the {fwd_ms:.3f} ms forward "
+          f"{depth_blocks * views_ms:.3f} ms of the {fwd_ms:.3f} ms forward "
           f"(bound {depth_blocks * bound:.3f} ms)")
-    profile_forward(model, batch)
+    n_copies = profile_forward(model, batch)
+    if n_copies is not None and n_copies > 28:
+        fail(f"the depth forward launched {n_copies} layout copies, expected at most 28 "
+             "(no q, k, v or output copies around K2)")
     return {"name": "flash_attention (non-causal attention fwd), per launch at "
                     f"{'x'.join(map(str, q.shape))} {str(q.dtype)[6:]}",
             "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
@@ -412,7 +450,7 @@ def main() -> None:
             print(f"[build] {name} {os.path.relpath(lib_path, HERE)} "
                   f"(both built in {time.time() - t:.1f} s)")
             for line in mod.build_log.splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                if any(w in line for w in ("registers", "spill", "Compiling entry", "C75")):
                     print(f"  ptxas: {line.strip()}")
 
     # -- 3. K1 against its plain version at the main path's shapes ---------

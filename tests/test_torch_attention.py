@@ -23,6 +23,13 @@ def qkv(rng, B, H, N, d=64):
     return [rng.normal(size=(B, H, N, d)).astype(np.float32) for _ in range(3)]
 
 
+def projection_views(x, H, d=64):
+    """The (B, H, N, d) q, k, v views of a fused qkv projection's (B, N,
+    3 H d) output, as the depth encoder passes them to the kernel."""
+    B, N, _ = x.shape
+    return x.reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+
 @pytest.mark.parametrize("N", [1, 50, 197])
 def test_plain_matches_jax_einsum(N):
     """float32, the same products and softmax; only the order of the float32
@@ -56,6 +63,21 @@ def test_plain_matches_tpu_kernel(monkeypatch, n_real, n_pad):
                                atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("N", [1, 50, 197])
+def test_plain_on_projection_views(N):
+    """The plain path on the strided views of a (B, N, 3, H, 64) projection
+    gives what it gives on contiguous copies, and agrees with JAX's
+    `_fused_sdpa` on the same q, k, v (float32, atol 1e-5)."""
+    x = np.random.default_rng(N + 1).normal(size=(2, N, 3 * 3 * 64)).astype(np.float32)
+    views = projection_views(torch.from_numpy(x), 3)
+    assert not any(t.is_contiguous() for t in views[1:]) or N == 1
+    got = attention(*views, SCALE)
+    torch.testing.assert_close(got, attention(*(t.contiguous() for t in views), SCALE),
+                               atol=1e-6, rtol=1e-6)
+    want = j_dav2._fused_sdpa(*(jnp.asarray(t.numpy()) for t in views), SCALE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
 def test_bf16_plain_matches_jax_einsum():
     """bfloat16 q, k, v: q scaled in bf16 (0.125 is exact), float32 scores
     and softmax, probabilities rounded to bf16, bf16 product. The two
@@ -82,6 +104,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros((2, 3, 17, 64))
     flash_attention_cuda._check(q, q, q)                                  # accepted
     flash_attention_cuda._check(*(q.bfloat16() for _ in range(3)))        # accepted
+    for dt in (torch.float32, torch.bfloat16):                            # accepted
+        flash_attention_cuda._check(*projection_views(torch.zeros((2, 17, 3 * 3 * 64), dtype=dt), 3))
+        t = torch.zeros((2, 17, 3, 64), dtype=dt).transpose(1, 2)         # head-transposed
+        flash_attention_cuda._check(t, t, t)
     with pytest.raises(TypeError):
         flash_attention_cuda._check(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="not \\(B, H, N >= 1, 64\\)"):
@@ -89,13 +115,31 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="not \\(B, H, N >= 1, 64\\)"):
         e = torch.zeros((2, 3, 0, 64))
         flash_attention_cuda._check(e, e, e)
-    with pytest.raises(ValueError, match="contiguous"):
-        t = torch.zeros((2, 17, 3, 64)).transpose(1, 2)
+    with pytest.raises(ValueError, match="last dimension .* contiguous"):
+        t = torch.zeros((2, 3, 64, 17)).transpose(2, 3)
+        flash_attention_cuda._check(t, t, t)
+    with pytest.raises(ValueError, match="16-byte aligned"):              # row stride 65
+        t = torch.zeros((2, 3, 17, 65))[..., :64]
+        flash_attention_cuda._check(t, t, t)
+    with pytest.raises(ValueError, match="16-byte aligned"):              # base pointer
+        t = torch.zeros(2 * 3 * 17 * 64 + 1)[1:].view(2, 3, 17, 64)
         flash_attention_cuda._check(t, t, t)
     with pytest.raises(ValueError, match="share one device"):
         flash_attention_cuda._check(q, q, torch.zeros((2, 3, 18, 64)))
+    with pytest.raises(ValueError, match="share one device"):
+        flash_attention_cuda._check(q, q, q.bfloat16())
     with pytest.raises(ValueError, match="B \\* H"):
         big = torch.zeros((2, 40000, 1, 64))
         flash_attention_cuda._check(big, big, big)
     with pytest.raises(ValueError, match="expected all"):
         flash_attention_cuda.flash_attention(q, q, q.to("meta"), SCALE)
+
+
+def test_strides_of_unit_dimensions():
+    """A dimension of size 1 is never stepped over: its stride goes to the
+    kernel as 64 elements, whatever the view reports, so that it meets the
+    16-byte rule."""
+    t = torch.zeros((1, 4, 1, 64)).as_strided((1, 4, 1, 64), (3, 64, 5, 1))
+    assert flash_attention_cuda._strides(t) == (64, 64, 64)
+    v = projection_views(torch.zeros((2, 5, 3 * 4 * 64)), 4)[2]
+    assert flash_attention_cuda._strides(v) == (5 * 3 * 4 * 64, 64, 3 * 4 * 64)

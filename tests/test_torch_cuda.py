@@ -106,22 +106,34 @@ def match(a, b, i):
     return torch.tensor(j, dtype=torch.long)
 
 
-@pytest.mark.parametrize("dtype,N", [("bfloat16", 1370), ("bfloat16", 197), ("bfloat16", 50),
-                                     ("bfloat16", 1), ("bfloat16", 64), ("float32", 197),
-                                     ("float32", 1)])
-def test_flash_attention_matches_plain(card, dtype, N):
-    """Ragged key tiles and a single token. bfloat16: P and O are each
+def attention_inputs(card, dt, N, layout, B=2, H=3):
+    """q, k, v of (B, H, N, 64): contiguous, or the views of a fused qkv
+    projection's (B, N, 3, H, 64) output, as the depth encoder passes them."""
+    g = torch.Generator(device=card).manual_seed(N)
+    if layout == "contiguous":
+        return [torch.randn((B, H, N, 64), generator=g, device=card).to(dt) for _ in range(3)]
+    qkv = torch.randn((B, N, 3 * H * 64), generator=g, device=card).to(dt)
+    return list(qkv.reshape(B, N, 3, H, 64).permute(2, 0, 3, 1, 4).unbind(0))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "projection"])
+@pytest.mark.parametrize("N", [1, 50, 63, 64, 65, 127, 128, 129, 197, 1370])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_matches_plain(card, dtype, N, layout):
+    """Tile edges (64 and 128 rows or keys) and ragged tiles, a single token,
+    contiguous inputs and projection views. bfloat16: P and O are each
     rounded to bf16 once, in other places than the plain version's
     (atol 2e-2, rtol 2e-2); float32: the same math in another order, online
-    softmax (atol 1e-5)."""
+    softmax (atol 1e-5). One launch per call; the output is a (B, H, N, 64)
+    view of (B, N, H, 64) memory."""
     dt = getattr(torch, dtype)
-    g = torch.Generator(device=card).manual_seed(N)
-    q, k, v = (torch.randn((2, 3, N, 64), generator=g, device=card).to(dt) for _ in range(3))
+    q, k, v = attention_inputs(card, dt, N, layout)
     before = flash_attention_cuda.flash_attention.launches
     got = flash_attention_cuda.flash_attention(q, k, v, 0.125)
     torch.cuda.synchronize()
     assert flash_attention_cuda.flash_attention.launches == before + 1
     assert got.shape == q.shape and got.dtype == dt
+    assert got.transpose(1, 2).is_contiguous()
     want = attention(q, k, v, 0.125)
     tol = dict(atol=1e-5, rtol=1e-5) if dt == torch.float32 else dict(atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)

@@ -199,10 +199,44 @@ def test_preprocess_images_matches_pil():
     std = np.array([0.229, 0.224, 0.225], np.float32)
     for size in (518, 98):
         want = j_dav2.preprocess_images(imgs, size)
-        got = t_dav2.preprocess_images(imgs, size).numpy()
+        got = t_dav2.preprocess_images(imgs, size, device="cpu").numpy()
         assert got.shape == want.shape == (3, size, size, 3)
         levels = np.abs((got - want) * std * 255.0)
         assert levels.max() <= 1.0 + 1e-3, levels.max()
+
+
+def test_preprocess_images_defaults_to_the_card():
+    """With no device given, preprocessing runs on the card and raises where
+    there is none; device="cpu" runs it on the CPU."""
+    img = np.random.default_rng(0).integers(0, 256, (20, 30, 3), dtype=np.uint8)
+    assert t_dav2.preprocess_images([img], 28, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert t_dav2.preprocess_images([img], 28).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_dav2.preprocess_images([img], 28)
+
+
+def test_attention_passes_projection_views(monkeypatch):
+    """The encoder hands the kernel q, k, v as views of its qkv projection's
+    (B, N, 3, H, d) output, with no copy between."""
+    seen = []
+    kernel = t_dav2.flash_attention
+
+    def spy(q, k, v, scale):
+        seen.append((q, k, v))
+        return kernel(q, k, v, scale)
+    monkeypatch.setattr(t_dav2, "flash_attention", spy)
+    attn = t_dav2.Attention(2 * 64, 2)
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(3, 7, 128)).astype(np.float32))
+    with torch.no_grad():
+        out = attn(x)
+    assert out.shape == (3, 7, 128)
+    q, k, v = seen[0]
+    assert q.shape == (3, 2, 7, 64)
+    for i, t in enumerate((q, k, v)):
+        assert t.stride() == (7 * 3 * 128, 64, 3 * 128, 1)
+        assert t.data_ptr() == q.data_ptr() + i * 128 * t.element_size()
 
 
 def test_synthetic_is_the_jax_packages():

@@ -54,7 +54,9 @@ def load_model(checkpoint: Optional[str], variant: str = "vitl", max_depth: floa
     """DepthAnythingV2 from a released `.pth` state dict, a `.npz` holding
     the JAX package's parameter tree under "params" (numpy arrays), or, with
     no checkpoint, random weights from seed 0. On `device` (the card unless
-    "cpu" is given) in `dtype`, in eval mode."""
+    "cpu" is given) in `dtype`, in eval mode. The convolution weights are
+    kept channels_last, as the activations are (the images come in NHWC), so
+    that no forward copies them into that layout again."""
     dev = resolve_device(device)
     model = DepthAnythingV2(variant, max_depth, input_size)
     if checkpoint and checkpoint.endswith(".npz"):
@@ -67,7 +69,7 @@ def load_model(checkpoint: Optional[str], variant: str = "vitl", max_depth: floa
     else:
         init_random_(model)
         print("WARNING: no checkpoint given; using random weights (smoke mode)")
-    return model.to(device=dev, dtype=dtype).eval()
+    return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
 
 
 def generate(records: Sequence[Dict], out_dir: str, checkpoint: Optional[str] = None,

@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...models.rcnn3d import resolve_device
 from ...ops.flash_attention_cuda import flash_attention
 
 VIT_SPECS = {
@@ -44,7 +45,9 @@ UNUSED_CHECKPOINT_KEYS = ("pretrained.mask_token",)
 
 class Attention(nn.Module):
     """Fused qkv projection -> (B, H, N, d) q, k, v -> flash attention ->
-    output projection."""
+    output projection. q, k and v are views of the projection's
+    (B, N, 3, H, d) output and the kernel's output is a view of (B, N, H, d)
+    memory, so no copy is made on either side of the kernel."""
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
@@ -56,8 +59,7 @@ class Attention(nn.Module):
         B, N, D = x.shape
         H = self.heads
         d = D // H
-        qkv = self.qkv(x).reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv.unbind(0))
+        q, k, v = self.qkv(x).reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
         out = flash_attention(q, k, v, d ** -0.5)
         return self.proj(out.transpose(1, 2).reshape(B, N, D))
 
@@ -246,12 +248,14 @@ _STD = (0.229, 0.224, 0.225)
 
 
 def preprocess_images(images: Sequence, input_size: int = 518,
-                      device="cpu") -> torch.Tensor:
+                      device=None) -> torch.Tensor:
     """(H, W, 3) uint8 images -> (B, input_size, input_size, 3) float32
-    ImageNet-normalised, on `device`. The resize is PIL's 8-bit BICUBIC:
+    ImageNet-normalised, on `device` (the card unless the caller asks for
+    the CPU; it raises where there is no GPU). The resize is PIL's 8-bit BICUBIC:
     antialiased bicubic, the horizontal pass first, each pass rounded and
     clamped to [0, 255] (the clamp between the passes matters at sharp
     edges, where bicubic overshoots). Then scaled to [0, 1] and normalised."""
+    device = resolve_device(device)
     mean = torch.tensor(_MEAN, device=device)
     std = torch.tensor(_STD, device=device)
     out = torch.empty((len(images), input_size, input_size, 3), device=device)

@@ -1,11 +1,12 @@
 """Non-causal attention through the CUDA kernel csrc/flash_attention.cu.
 
 `flash_attention(q, k, v, scale)` is the attention the Depth Anything V2
-encoder calls, on (B, H, N, 64) tensors. For CUDA tensors it launches the
-kernel (bfloat16 on the tensor cores, float32 on a plain f32 path) and
-raises if it cannot; for CPU tensors it runs the plain PyTorch version
-(ops/attention.py, re-exported here as `plain`). There is no fallback from
-the card to the plain version.
+encoder calls, on (B, H, N, 64) tensors given by their strides (the
+encoder passes views of its qkv projection, no copies). For CUDA tensors it
+launches the kernel (bfloat16 on the tensor cores, float32 on a plain f32
+path) and raises if it cannot; for CPU tensors it runs the plain PyTorch
+version (ops/attention.py, re-exported here as `plain`). There is no
+fallback from the card to the plain version.
 
 The kernel is built at first use with nvcc for sm_90a into `build/` at the
 repository root (ops/cuda_build.py) and loaded with ctypes.
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,14 +47,25 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         P = ctypes.c_void_p
         lib.flash_attention_forward.argtypes = [
-            ctypes.c_int, P, P, P, P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, P]
+            ctypes.c_int, P, P, P, P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P]
         lib.flash_attention_forward.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """The (B, H, N) strides of a (B, H, N, 64) tensor in elements. A
+    dimension of size 1 is never stepped over, so its stride is set to 64,
+    a value the kernel takes whatever the view reported."""
+    return tuple(s if n > 1 else HEAD_DIM for s, n in zip(t.stride()[:3], t.shape[:3]))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raises on what the kernel does not take. It takes any view whose last
+    dimension is contiguous and whose base pointer and other strides are
+    16-byte aligned, such as the q, k, v views of a fused qkv projection's
+    (B, N, 3, H, 64) output."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q, k, v must be float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or q.shape[-1] != HEAD_DIM or q.shape[2] < 1:
@@ -63,14 +75,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError("q, k and v must share one device, dtype and shape")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("q, k and v must be contiguous and 16-byte aligned")
+        if t.stride(-1) != 1:
+            raise ValueError("the last dimension of q, k and v must be contiguous")
+        if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in _strides(t)):
+            raise ValueError("q, k and v need 16-byte aligned base pointers and strides")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v over (B, H, N, 64) tensors, in their dtype.
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel, which reads
+    q, k, v through their strides and returns a (B, H, N, 64) view of a
+    (B, N, H, 64) tensor, so that `out.transpose(1, 2)` is contiguous."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return plain(q, k, v, scale)
     if any(t.device.type != "cuda" for t in (q, k, v)):
@@ -78,13 +94,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "on the CPU or all on one CUDA device")
     _check(q, k, v)
     B, H, N, d = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _strides(t)))
     lib = _load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_forward(
             0 if q.dtype == torch.float32 else 1, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B * H, N, d, float(scale), stream)
+            v.data_ptr(), out.data_ptr(), B, H, N, d, strides, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_forward failed with CUDA error {err}")
     flash_attention.launches += 1
