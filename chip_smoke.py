@@ -7,8 +7,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build the ROIAlign (K1) and flash-attention (K2) CUDA kernels from
      weakcube_tpu_torch/csrc, one nvcc each, in parallel;
   3. hold K1 against its plain PyTorch version at the main path's shapes
-     (b8, levels 128^2..8^2 x 256, R = 1000 and 100), with edge-case boxes,
-     in float32 and bfloat16;
+     (b8, levels 128^2..8^2 x 256, R = 1000 and 100), with edge-case boxes
+     (past the borders, sub-pixel, elongated, hugging a border, empty,
+     huge), in float32 and bfloat16;
   4. build the full-width flagship model (configs/Omni_combined.yaml:
      DLA-34 + FPN 256, 38 classes, bf16 compute) with random weights from a
      seed, and run one warm-up plus 3 forwards of 8 images at 512 px;
@@ -16,7 +17,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      forward) and hold K1 against the plain version on the forward's own
      pyramid and boxes; check a small float32 model on the card against the
      same model on the CPU;
-  6. time the forward, K1, its plain version and a library yardstick;
+  6. time the forward; K1 and a library yardstick in turns (5 rounds,
+     medians), K1's device time per launch (the host's enqueue hidden
+     behind a sleep kernel) and K1's plain
+     version, per pooler, beside two bounds (the whole pyramid, and the
+     pixels the forward's boxes touch) and the bytes K1 stages from L2;
+     K1 on as many real-size RoIs (p3-p5 squares of 14-28 feature units)
+     and on sub-pixel RoIs at one spot (every read a cache hit), checked
+     and timed; profile one forward;
   7. hold K2 against its plain PyTorch version at B16 H16 d64 with
      N = 1, 50, 63, 64, 65, 127, 128, 129, 197 and 1370 (the tile edges and
      ragged tiles), in bfloat16 and float32, on contiguous q, k, v and on
@@ -89,18 +97,52 @@ def timed_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def roi_align_bound(levels, boxes, out_size: int, sr: int):
-    """Least time for one pooler call: each input read once and the output
-    written once over HBM bandwidth, against its float32 operations (per
-    output value: sr^2 samples x 4 corners x multiply-add, one divide)."""
+def kernel_device_ms(fn, iters: int) -> float:
+    """Device ms per call of fn, the host's enqueue hidden: a sleep kernel
+    holds the stream while the host queues `iters` calls, so the CUDA events
+    around them time the device alone. (Events around back-to-back calls
+    time the host when a kernel is shorter than its Python wrapper's
+    enqueue.) Fails if the queueing outlasted the sleep."""
+    import torch
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
+    ev[1].record()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        fail(f"queueing {iters} calls took {host_ms:.3f} ms, longer than the "
+             f"{ev[0].elapsed_time(ev[1]):.3f} ms sleep that hides it")
+    return ev[1].elapsed_time(ev[2]) / iters
+
+
+def roi_align_bound(levels, boxes, strides, out_size: int, sr: int):
+    """Least time for one pooler call, against its float32 operations (per
+    output value: sr^2 samples x 4 corners x multiply-add, one divide), in
+    two byte counts over HBM bandwidth: the whole pyramid read once (the
+    figure of earlier runs), and the pixels these boxes touch (their union
+    per image and level, counted on the device) read once; both with the
+    boxes read and the output written once. Also returns the bytes that
+    K1's staging moves from L2 into shared memory (each RoI's window once)."""
+    from weakcube_tpu_torch.ops.roi_align_cuda import footprint
+    fp = footprint(levels, boxes, strides, out_size, sr)
     elt = levels[0].element_size()
-    B, R = boxes.shape[:2]
-    C = levels[0].shape[-1]
-    n_out = B * R * out_size * out_size * C
-    nbytes = sum(f.numel() for f in levels) * elt + boxes.numel() * 4 + n_out * elt
-    ops = n_out * (sr * sr * 4 * 2 + 1)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    n_out = fp["out_bytes"] // elt
+    t_ops = n_out * (sr * sr * 4 * 2 + 1) / PEAK_F32_FLOPS
+    rest = boxes.numel() * 4 + fp["out_bytes"]
+    out = {}
+    for name, nbytes in (("whole", sum(f.numel() for f in levels) * elt + rest),
+                         ("touched", fp["touched_bytes"] + rest)):
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    out["staged_bytes"], out["touched_bytes"] = fp["staged_bytes"], fp["touched_bytes"]
+    return out
 
 
 def attention_bound(q):
@@ -221,7 +263,9 @@ def profile_forward(model, batch, top: int = 12):
 
 def edge_boxes(B, R, size, gen, device):
     """Random boxes over a size x size canvas, with edge cases: boxes past
-    every border, sub-pixel boxes, zero-area boxes and huge boxes (p6)."""
+    every border, sub-pixel boxes, elongated boxes (far wider or taller than
+    the 2 * 7 * 2 lines a window holds at their level), boxes hugging each
+    border, zero-area boxes and huge boxes (p6)."""
     import torch
     xy = torch.rand((B, R, 2), generator=gen, device=device) * size
     wh = torch.rand((B, R, 2), generator=gen, device=device) ** 3 * size * 0.8 + 1.0
@@ -229,12 +273,43 @@ def edge_boxes(B, R, size, gen, device):
     n = R // 10
     b[:, :n] = b[:, :n] * 1.6 - 0.3 * size                  # past the borders
     b[:, n:2 * n, 2:] = b[:, n:2 * n, :2] + 0.3             # sub-pixel
+    # elongated: 0.5-1.2 x size long, 2-16 px thin, half of them vertical
+    u = torch.rand((B, n, 4), generator=gen, device=device)
+    long, thin = (0.5 + 0.7 * u[..., 0]) * size, 2.0 + 14.0 * u[..., 1]
+    x0, y0 = (u[..., 2] * 0.8 - 0.2) * size, u[..., 3] * size
+    el = torch.stack([x0, y0, x0 + long, y0 + thin], -1)
+    el[:, ::2] = el[:, ::2][..., [1, 0, 3, 2]]
+    b[:, 3 * n:4 * n] = el
+    # hugging a border: one edge on it (or half a pixel past it), in turn
+    hb = b[:, 4 * n:5 * n].clone()
+    for k in range(4):
+        side = hb[:, k::4]
+        w = side[..., 2:] - side[..., :2]
+        edge = float(size) if k >= 2 else 0.0
+        side[..., k] = edge - 0.5 if k < 2 else edge + 0.5
+        side[..., (k + 2) % 4] = side[..., k] + (w[..., k % 2] if k < 2 else -w[..., k % 2])
+        hb[:, k::4] = side
+    b[:, 4 * n:5 * n] = torch.stack([torch.minimum(hb[..., 0], hb[..., 2]),
+                                     torch.minimum(hb[..., 1], hb[..., 3]),
+                                     torch.maximum(hb[..., 0], hb[..., 2]),
+                                     torch.maximum(hb[..., 1], hb[..., 3])], -1)
     b[:, 2 * n:2 * n + 4] = torch.tensor([[-50.0, -50.0, size + 80.0, size + 80.0],
                                           [0.0, 0.0, size, size],
                                           [10.0, 10.0, 10.0, 10.0],
                                           [size - 1.0, 0.0, size + 30.0, 5.0]],
                                          device=device)     # huge, full, empty, edge
     return b.contiguous()
+
+
+def large_boxes(B, R, size, gen, device):
+    """Square RoIs of 14-28 feature units (log-uniform) on p3, p4 or p5 at
+    random centres on a size x size canvas: the windows of 225-784 pixels
+    that real-size objects give, where random-weight proposals stay on p2."""
+    import torch
+    u = torch.rand((B, R, 4), generator=gen, device=device)
+    side = 14.0 * 2.0 ** u[..., 0] * 2.0 ** (3 + (3 * u[..., 1]).floor())
+    c = u[..., 2:] * size
+    return torch.cat([c - side[..., None] / 2, c + side[..., None] / 2], -1).contiguous()
 
 
 def depth_phases(dev):
@@ -573,23 +648,65 @@ def main() -> None:
     print(f"[timing] forward b8 @ 512 px: median {fwd_ms:.3f} ms over {len(times) - 1} "
           f"(each {', '.join(f'{x:.3f}' for x in times)} ms, first is the warm-up), "
           f"{8e3 / fwd_ms:.1f} images/s")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    # K1 and the library yardstick in turns, five rounds each; the medians
+    # are reported
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "whole_bound_ms": 0.0}
     bound_by = None
     for name, bx, res in calls:
-        ms = timed_ms(lambda: K1(levels, bx, FPN_STRIDES, res, sr), 20)
-        plain_ms = timed_ms(lambda: plain(levels, bx, FPN_STRIDES, res, sr), 3, warmup=1)
         lib = library_roi_align(levels, bx, FPN_STRIDES, res, sr)
+        turns = {"K1": (lambda: K1(levels, bx, FPN_STRIDES, res, sr), 20), "library": (lib, 3)}
+        rounds = {k: [] for k in turns}
+        for r in range(5):
+            for k in (list(turns) if r % 2 == 0 else list(turns)[::-1]):
+                rounds[k].append(timed_ms(turns[k][0], turns[k][1], warmup=1))
+        ev_ms, lib_ms = statistics.median(rounds["K1"]), statistics.median(rounds["library"])
+        ms = kernel_device_ms(turns["K1"][0], 20)  # the kernel, not the host
+        plain_ms = timed_ms(lambda: plain(levels, bx, FPN_STRIDES, res, sr), 3, warmup=1)
         lib_err = (lib().float() - plain(levels, bx, FPN_STRIDES, res, sr).float()).abs().max().item()
-        lib_ms = timed_ms(lib, 5, warmup=1)
-        bound, by = roi_align_bound(levels, bx, res, sr)
+        bd = roi_align_bound(levels, bx, FPN_STRIDES, res, sr)
+        (bound, by), (whole, _) = bd["touched"], bd["whole"]
         bound_by = bound_by or by
-        for k, x in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("library_ms", lib_ms)):
+        for k, x in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("library_ms", lib_ms),
+                     ("whole_bound_ms", whole)):
             tot[k] += x
-        print(f"[timing] K1 {name} R={bx.shape[1]}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
-              f"{100 * bound / ms:.1f}% of it), plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms "
-              f"(library max |err| vs plain {lib_err:.3e})")
+        print(f"[timing] K1 {name} R={bx.shape[1]}: {ms:.4f} ms of device time per launch "
+              f"(20 launches queued behind a sleep kernel); {ev_ms:.4f} ms per call by CUDA "
+              f"events (median; rounds "
+              f"{' '.join(f'{x:.4f}' for x in rounds['K1'])}); bound {bound:.4f} ms by {by} over "
+              f"the touched pixels ({bd['touched_bytes']:.4e} B; {100 * bound / ms:.1f}% of it), "
+              f"{whole:.4f} ms over the whole pyramid ({100 * whole / ms:.1f}%); staged L2->SM "
+              f"{bd['staged_bytes']:.4e} B; plain {plain_ms:.3f} ms; library {lib_ms:.3f} ms "
+              f"(median; rounds {' '.join(f'{x:.3f}' for x in rounds['library'])}; max |err| vs "
+              f"plain {lib_err:.3e})")
     print(f"[timing] K1 per forward (box + cube pooler): {tot['ms']:.4f} ms, bound "
-          f"{tot['bound_ms']:.4f} ms")
+          f"{tot['bound_ms']:.4f} ms over the touched pixels, {tot['whole_bound_ms']:.4f} ms over "
+          "the whole pyramid")
+    # the box pooler's count of other RoIs on the forward's pyramid, checked
+    # and timed the same way: real-size RoIs (p3-p5 windows of 225-784
+    # pixels), and sub-pixel RoIs at one spot (every read a cache hit: what
+    # is left is the kernel's instruction issue)
+    other = {"p3-p5 squares": large_boxes(8, 1000, 512, torch.Generator(device=dev).manual_seed(2),
+                                          dev),
+             "sub-pixel RoIs at one spot": torch.tensor([100.0, 100.0, 100.3, 100.3],
+                                                        device=dev).expand(8, 1000, 4).contiguous()}
+    for name, bx in other.items():
+        fp = roi_align_cuda.footprint(levels, bx, FPN_STRIDES, res_box, sr)
+        lv = fp["levels"].flatten().tolist()
+        px = (fp["ny"] * fp["nx"]).float()
+        check_close(f"{name} R={bx.shape[1]}", K1(levels, bx, FPN_STRIDES, res_box, sr),
+                    plain(levels, bx, FPN_STRIDES, res_box, sr), *tol)
+        call = lambda: K1(levels, bx, FPN_STRIDES, res_box, sr)
+        ev_ms = statistics.median(timed_ms(call, 20, warmup=1) for _ in range(5))
+        ms = kernel_device_ms(call, 20)
+        bd = roi_align_bound(levels, bx, FPN_STRIDES, res_box, sr)
+        print(f"[timing] K1 on {name} R={bx.shape[1]} (RoIs per level p2..p6 "
+              f"{[lv.count(l) for l in range(2, 7)]}; staged pixels per RoI: mean "
+              f"{px.mean():.1f}, max {px.max():.0f}): {ms:.4f} ms of device time per launch; "
+              f"{ev_ms:.4f} ms per call by CUDA events (median of 5); bound {bd['touched'][0]:.4f} "
+              f"ms by {bd['touched'][1]} over the touched pixels ({bd['touched_bytes']:.4e} B), "
+              f"{bd['whole'][0]:.4f} ms over the whole pyramid; staged L2->SM "
+              f"{bd['staged_bytes']:.4e} B")
     profile_forward(model, batch)
     del model, feats, levels, calls, det, det2d, props
     torch.cuda.empty_cache()

@@ -12,6 +12,7 @@ from weakcube_tpu_torch.ops import flash_attention_cuda
 from weakcube_tpu_torch.ops import roi_align as t_ra
 from weakcube_tpu_torch.ops import roi_align_cuda
 from weakcube_tpu_torch.ops.attention import attention
+from torch_roi_boxes import BOX_SETS, box_set
 
 STRIDES = (4, 8, 16, 32, 64)
 pytestmark = pytest.mark.cuda
@@ -26,37 +27,91 @@ def card():
     return torch.device("cuda")
 
 
-def edge_boxes(rng, B, R, size):
-    """Random boxes plus boxes past the border, sub-pixel, zero-area and
-    huge boxes (clamped to p6)."""
-    xy = rng.uniform(-20, size, (B, R, 2))
-    wh = rng.uniform(1, size * 0.7, (B, R, 2))
-    b = np.concatenate([xy, xy + wh], -1)
-    b[:, 0] = [-40.0, -30.0, size + 50.0, size + 60.0]
-    b[:, 1] = [-5000.0, -5000.0, 5000.0, 5000.0]
-    b[:, 2] = [10.3, 20.6, 10.5, 20.9]
-    b[:, 3] = [7.0, 7.0, 7.0, 7.0]
-    return b.astype(np.float32)
+def pyramid(card, dt, rng, C, B=2, size=256):
+    return [torch.from_numpy(rng.normal(size=(B, size // s, size // s, C)).astype(np.float32))
+            .to(card, dt) for s in STRIDES]
 
 
-@pytest.mark.parametrize("dtype,C", [("float32", 64), ("bfloat16", 64), ("float32", 6),
-                                     ("bfloat16", 5)])
-def test_kernel_matches_plain(card, dtype, C):
-    """float32: the same arithmetic in another summation order (atol 2e-5);
-    bfloat16: both round a float32 sum to bf16, at most one bf16 step apart.
-    C=6 and C=5 take the scalar-load variants."""
+@pytest.mark.parametrize("boxes_name", BOX_SETS)
+@pytest.mark.parametrize("out_size,sr", [(7, 2), (5, 3), (7, 1)])
+@pytest.mark.parametrize("C", [5, 6, 64, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain(card, dtype, C, out_size, sr, boxes_name):
+    """float32: the same sample coordinates, the bilinear sum taken
+    separably (x, then y) instead of per sample (atol 2e-5, rtol 1e-5);
+    bfloat16: both round a float32 sum to bf16, at most one bf16 step apart
+    (1e-2 + 1e-2 rel). C = 5 and 6 take the scalar width (not a multiple of
+    8 bf16 or 4 float32 channels), 64 and 256 the 16-byte vectors; (7, 2) the
+    compile-time shape, the others the generic one. One launch per call."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(4)
-    feats = [torch.from_numpy(rng.normal(size=(2, 256 // s, 256 // s, C)).astype(np.float32))
-             .to(card, dt) for s in STRIDES]
-    boxes = torch.from_numpy(edge_boxes(rng, 2, 50, 256)).to(card)
+    feats = pyramid(card, dt, rng, C)
+    boxes = torch.from_numpy(box_set(boxes_name, rng, 2, 50, 256)).to(card)
+    before = roi_align_cuda.multilevel_roi_align.launches
+    got = roi_align_cuda.multilevel_roi_align(feats, boxes, STRIDES, out_size, sr)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.multilevel_roi_align.launches == before + 1
+    assert got.shape == (2, 50, out_size, out_size, C) and got.dtype == dt
+    want = t_ra.multilevel_roi_align(feats, boxes, STRIDES, out_size, sr)
+    tol = dict(atol=2e-5, rtol=1e-5) if dt == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_misaligned_levels(card, dtype):
+    """Levels that are contiguous views one element past a 16-byte boundary
+    take the scalar width and agree with the plain version."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    feats = []
+    for f in pyramid(card, dt, rng, 64):
+        flat = torch.empty(f.numel() + 8, dtype=dt, device=card)
+        view = flat[(2 // f.element_size()) or 1:][:f.numel()].view(f.shape)
+        view.copy_(f)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        feats.append(view)
+    boxes = torch.from_numpy(box_set("edge", rng, 2, 50, 256)).to(card)
     before = roi_align_cuda.multilevel_roi_align.launches
     got = roi_align_cuda.multilevel_roi_align(feats, boxes, STRIDES, 7, 2)
     torch.cuda.synchronize()
     assert roi_align_cuda.multilevel_roi_align.launches == before + 1
-    want = t_ra.multilevel_roi_align(feats, boxes, STRIDES, 7, 2)
     tol = dict(atol=2e-5, rtol=1e-5) if dt == torch.float32 else dict(atol=1e-2, rtol=1e-2)
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(got.float(), t_ra.multilevel_roi_align(
+        feats, boxes, STRIDES, 7, 2).float(), **tol)
+
+
+@pytest.mark.parametrize("seed", [7, 8, 9])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_many_rois_per_block(card, dtype, seed):
+    """More RoIs than the persistent grid holds (several per block), mixing
+    the box sets, so that blocks move from RoI to RoI and from one RoI's
+    last channel chunk to the next RoI's first. Five launches on the same
+    input give the same bits (a race in the hand-offs would not) and agree
+    with the plain version."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(seed)
+    feats = pyramid(card, dt, rng, 256)
+    boxes = np.concatenate([box_set(n, rng, 2, 800, 256) for n in BOX_SETS], 1)
+    boxes = torch.from_numpy(np.ascontiguousarray(boxes[:, rng.permutation(boxes.shape[1])]))
+    boxes = boxes.to(card)
+    before = roi_align_cuda.multilevel_roi_align.launches
+    runs = [roi_align_cuda.multilevel_roi_align(feats, boxes, STRIDES, 7, 2) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert roi_align_cuda.multilevel_roi_align.launches == before + 5
+    for got in runs[1:]:
+        assert torch.equal(got, runs[0])
+    tol = dict(atol=2e-5, rtol=1e-5) if dt == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(runs[0].float(), t_ra.multilevel_roi_align(
+        feats, boxes, STRIDES, 7, 2).float(), **tol)
+
+
+def test_kernel_no_rois_launches_nothing(card):
+    feats = pyramid(card, torch.bfloat16, np.random.default_rng(6), 64)
+    before = roi_align_cuda.multilevel_roi_align.launches
+    got = roi_align_cuda.multilevel_roi_align(feats, torch.zeros((2, 0, 4), device=card),
+                                              STRIDES, 7, 2)
+    assert got.shape == (2, 0, 7, 7, 64) and got.dtype == torch.bfloat16
+    assert roi_align_cuda.multilevel_roi_align.launches == before
 
 
 def test_kernel_refuses_nchw_levels(card):

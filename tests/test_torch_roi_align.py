@@ -13,26 +13,13 @@ import torch
 from weakcube_tpu.ops import roi_align as j_ra
 from weakcube_tpu_torch.ops import roi_align as t_ra
 from weakcube_tpu_torch.ops import roi_align_cuda
+from torch_roi_boxes import BOX_SETS, box_set, edge_boxes
 
 STRIDES = (4, 8, 16, 32, 64)
 
 
 def pyramid(rng, B, size, C):
     return [rng.normal(size=(B, size // s, size // s, C)).astype(np.float32) for s in STRIDES]
-
-
-def edge_boxes(rng, B, R, size):
-    """Random boxes plus boxes past the border, sub-pixel boxes, a zero-area
-    box and huge boxes that the level heuristic clamps to p6."""
-    xy = rng.uniform(-20, size, (B, R, 2))
-    wh = rng.uniform(1, size * 0.7, (B, R, 2))
-    b = np.concatenate([xy, xy + wh], -1)
-    b[:, 0] = [-40.0, -30.0, size + 50.0, size + 60.0]     # huge, past every border
-    b[:, 1] = [-5000.0, -5000.0, 5000.0, 5000.0]           # far beyond p6's scale
-    b[:, 2] = [10.3, 20.6, 10.5, 20.9]                     # sub-pixel
-    b[:, 3] = [7.0, 7.0, 7.0, 7.0]                         # zero area
-    b[:, 4] = [size - 3.0, -8.0, size + 20.0, 6.0]         # across a corner
-    return b.astype(np.float32)
 
 
 def test_assign_fpn_levels():
@@ -43,13 +30,18 @@ def test_assign_fpn_levels():
     assert {2, 6} <= set(got.flatten().tolist())
 
 
+@pytest.mark.parametrize("boxes_name", BOX_SETS)
 @pytest.mark.parametrize("out_size,sr", [(7, 2), (5, 3)])
-def test_plain_matches_jax_gather(out_size, sr):
+def test_plain_matches_jax_gather(out_size, sr, boxes_name):
     """float32, the same bilinear weights on the same feature values: only
-    the order of the float32 sums differs, so atol 1e-5 on N(0, 1) features."""
+    the order of the float32 sums differs, so atol 1e-5 on N(0, 1) features.
+    Besides random and edge-case boxes, the geometry the CUDA kernel's
+    staging finds hardest: RoIs far longer than 2 * out_size * sr feature
+    units at their level, RoIs hugging each border, sub-pixel RoIs and
+    squares sized for every level."""
     rng = np.random.default_rng(1)
     feats = pyramid(rng, 2, 128, 8)
-    boxes = edge_boxes(rng, 2, 24, 128)
+    boxes = box_set(boxes_name, rng, 2, 24, 128)
     got = t_ra.multilevel_roi_align([torch.from_numpy(f) for f in feats],
                                     torch.from_numpy(boxes), STRIDES, out_size, sr)
     want = j_ra.multilevel_roi_align([jnp.asarray(f) for f in feats], jnp.asarray(boxes),
@@ -104,3 +96,42 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         roi_align_cuda._check(feats, boxes, STRIDES[:3], 7, 2)
     with pytest.raises(ValueError, match="output_size"):
         roi_align_cuda._check(feats, boxes, STRIDES, 7, 20)
+
+
+@pytest.mark.parametrize("limit", ["samples", "level size"])
+def test_wrapper_refuses_beyond_the_kernels_limits(limit):
+    """The staged window holds (2 * out_size * sr)^2 pixels, so out_size * sr
+    stops at MAX_SAMPLES (40); line offsets are 32-bit, so a level holds
+    fewer than 2^31 elements. Meta tensors: shapes without memory."""
+    feats = [torch.zeros((1, 64 // s, 64 // s, 4)) for s in STRIDES]
+    boxes = torch.zeros((1, 3, 4))
+    if limit == "samples":
+        roi_align_cuda._check(feats, boxes, STRIDES, 8, 5)           # 40: accepted
+        with pytest.raises(ValueError, match="output_size"):
+            roi_align_cuda._check(feats, boxes, STRIDES, 7, 6)
+    else:
+        meta = torch.device("meta")
+        big = [torch.empty((1, 2 ** 14, 2 ** 14, 8), device=meta)]  # 2^31 elements
+        ok = [torch.empty((1, 2 ** 14, 2 ** 14 - 1, 8), device=meta)]
+        roi_align_cuda._check(ok, boxes.to(meta), STRIDES[:1], 7, 2)
+        with pytest.raises(ValueError, match="32-bit"):
+            roi_align_cuda._check(big, boxes.to(meta), STRIDES[:1], 7, 2)
+
+
+def test_footprint_counts_the_kernels_staging():
+    """roi_align_cuda.footprint, which chip_smoke.py's bounds use: a
+    sub-pixel RoI stages and touches 2 x 2 pixels; a RoI 128 feature units
+    long stages the 2P = 28 touched columns, not its 129-column run (and its
+    3-row compact run); a 14-unit square stages its compact 15 x 15 run; the
+    union of touched pixels is counted once however many RoIs share them."""
+    feats = [torch.zeros((1, 128 // s, 128 // s, 8)) for s in STRIDES]
+    boxes = torch.tensor([[[30.0, 30.0, 30.2, 30.2], [0.0, 40.0, 512.0, 44.0],
+                           [4.0, 4.0, 60.0, 60.0], [4.0, 4.0, 60.0, 60.0]]])
+    fp = roi_align_cuda.footprint(feats, boxes, STRIDES, 7, 2)
+    assert fp["levels"].tolist() == [[2, 2, 2, 2]]
+    assert fp["ny"].tolist() == [[2, 3, 15, 15]] and fp["nx"].tolist() == [[2, 28, 15, 15]]
+    assert fp["staged_bytes"] == (4 + 3 * 28 + 2 * 225) * 8 * 4
+    assert fp["out_bytes"] == 4 * 49 * 8 * 4 and fp["gather_bytes"] == 16 * fp["out_bytes"]
+    # the two equal RoIs touch the same 15 x 15 pixels; the long one touches
+    # 3 rows x 28 columns
+    assert 225 * 32 < fp["touched_bytes"] <= (4 + 84 + 225) * 32

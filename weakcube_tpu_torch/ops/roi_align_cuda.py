@@ -7,7 +7,8 @@ is no fallback from the card to the plain version.
 
 The kernel is built at first use with nvcc for sm_90a into `build/` at the
 repository root (ops/cuda_build.py) and loaded with ctypes.
-`multilevel_roi_align.launches` counts kernel launches.
+`multilevel_roi_align.launches` counts kernel launches. `footprint` counts
+the bytes the kernel's staging plan moves for given boxes.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import ctypes
 import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .cuda_build import CSRC_DIR, build_library
@@ -22,7 +24,7 @@ from .roi_align import multilevel_roi_align as plain
 
 SOURCE = os.path.join(CSRC_DIR, "roi_align.cu")
 MAX_LEVELS = 8
-MAX_SAMPLES = 128
+MAX_SAMPLES = 40  # out_size * sampling_ratio: the kernel's staged window is (2P)^2 pixels
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""
@@ -77,6 +79,9 @@ def _check(features: Sequence[torch.Tensor], boxes: torch.Tensor, strides,
         if not f.is_contiguous():
             raise ValueError("levels must be NHWC-contiguous (a channels_last "
                              "NCHW tensor permuted to NHWC is)")
+        if f.shape[1] * f.shape[2] * C >= 2 ** 31:
+            raise ValueError(f"level of shape {tuple(f.shape)} is too large for the "
+                             "kernel's 32-bit offsets (H * W * C < 2^31)")
 
 
 def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
@@ -96,9 +101,9 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     out = torch.empty((B, R, output_size, output_size, C), dtype=dt, device=boxes.device)
     if B * R == 0:
         return out
-    vec = 4 if dt == torch.float32 else 2
-    if C % vec or any(t.data_ptr() % (vec * t.element_size())
-                      for t in (*features, out)):
+    # 16-byte vectors where C and every pointer allow, else the scalar width
+    vec = 4 if dt == torch.float32 else 8
+    if C % vec or any(t.data_ptr() % 16 for t in (*features, out)):
         vec = 1
     L = len(features)
     lib = _load()
@@ -120,3 +125,58 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
 
 
 multilevel_roi_align.launches = 0
+
+
+def footprint(levels, boxes, strides, out_size: int, sr: int, min_level: int = 2):
+    """The kernel's shared-memory staging plan, counted on the boxes' device
+    (for the bounds that chip_smoke.py prints; nothing here launches the
+    kernel). Per RoI and axis the kernel stages the compact run of lines
+    between the lowest and highest touched line when it holds at most 2P
+    lines (P = out_size * sr) and no bin spans more than 2 * sr of them, else
+    the 2P touched lines themselves.
+    Returns a dict of tensors and totals: `levels` and `ny`, `nx` (B, R)
+    staged lines, `staged_bytes` (sum of ny * nx * C * itemsize: what the
+    staging moves from L2 to the SMs), `touched_bytes` (the union over RoIs
+    of the pixels whose values are read, per image and level, times
+    C * itemsize), `out_bytes`, and `gather_bytes` (sr^2 * 4 corner reads per
+    output value, what a per-sample gather loads)."""
+    dev = boxes.device
+    B, R = boxes.shape[:2]
+    C, elt = levels[0].shape[-1], levels[0].element_size()
+    P = out_size * sr
+    hs = torch.tensor([f.shape[1] for f in levels], device=dev)
+    ws = torch.tensor([f.shape[2] for f in levels], device=dev)
+    offs = torch.tensor(np.cumsum([0] + [f.shape[1] * f.shape[2] for f in levels])[:-1],
+                        device=dev)
+    inv = torch.tensor([1.0 / s for s in strides], device=dev)
+    w = (boxes[..., 2] - boxes[..., 0]).clamp(min=0.0)
+    h = (boxes[..., 3] - boxes[..., 1]).clamp(min=0.0)
+    lvl = torch.floor(4 + torch.log2(torch.sqrt(w * h) / 224.0 + 1e-8))
+    lvl = lvl.clamp(min_level, min_level + len(levels) - 1).long() - min_level
+    scale, H, W = inv[lvl], hs[lvl], ws[lvl]
+    grid = torch.from_numpy((np.arange(P, dtype=np.float32) + np.float32(0.5))
+                            / np.float32(P)).to(dev)
+
+    def lines(a0, a1, size):
+        c0 = a0 * scale - 0.5
+        ln = (a1 * scale - 0.5 - c0).clamp(min=1e-6)
+        c = torch.minimum((c0[..., None] + ln[..., None] * grid).clamp(min=0.0),
+                          (size[..., None] - 1).float())
+        lo = torch.floor(c).long()
+        hi = torch.minimum(lo + 1, size[..., None] - 1)
+        run = hi[..., -1] - lo[..., 0] + 1
+        band = hi[..., sr - 1::sr] - lo[..., ::sr] + 1      # lines per bin
+        rect = (run <= 2 * P) & (band <= 2 * sr).all(-1)
+        return torch.where(rect, run, torch.full_like(run, 2 * P)), torch.cat([lo, hi], -1)
+
+    ny, rows = lines(boxes[..., 1], boxes[..., 3], H)
+    nx, cols = lines(boxes[..., 0], boxes[..., 2], W)
+    pix = offs[lvl][..., None, None] + rows[..., :, None] * W[..., None, None] + cols[..., None, :]
+    mask = torch.zeros((B, int(offs[-1]) + levels[-1].shape[1] * levels[-1].shape[2]),
+                       dtype=torch.bool, device=dev)
+    mask.scatter_(1, pix.reshape(B, -1), True)
+    n_out = B * R * out_size * out_size * C
+    return {"ny": ny, "nx": nx, "levels": lvl + min_level,
+            "staged_bytes": int((ny * nx).sum()) * C * elt,
+            "touched_bytes": int(mask.sum()) * C * elt,
+            "out_bytes": n_out * elt, "gather_bytes": n_out * sr * sr * 4 * elt}
