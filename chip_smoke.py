@@ -4,8 +4,8 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. print the card's name and power limit (nvidia-smi);
-  2. build the ROIAlign (K1) and flash-attention (K2) CUDA kernels from
-     weakcube_tpu_torch/csrc, one nvcc each, in parallel;
+  2. build the ROIAlign (K1 and K1-bwd, one source) and flash-attention (K2)
+     CUDA kernels from weakcube_tpu_torch/csrc, one nvcc each, in parallel;
   3. hold K1 against its plain PyTorch version at the main path's shapes
      (b8, levels 128^2..8^2 x 256, R = 1000 and 100), with edge-case boxes
      (past the borders, sub-pixel, elongated, hugging a border, empty,
@@ -44,7 +44,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      version; profile one forward and
      count its layout copies (at most 28: no q, k, v or output copies
      around K2);
- 10. print the kernels line and, last, {"ok": true, "device": {...}}.
+ 10. (after 6) hold K1-bwd (the feature gradient of K1) against its plain
+     version (the explicit scatter), float32 and bfloat16, on the forward
+     checks' box sets (edge cases, p3-p5 squares, tests/torch_roi_boxes.py),
+     the detection forward's own pyramid and proposals, and no RoIs; a
+     second launch must agree within the same tolerance;
+ 11. the small float32 training step on the card against the CPU with the
+     same injected anchor labels and RoIs (tests/torch_train_check.py), and
+     the ROI heads' gradient reaching the FPN through K1-bwd;
+ 12. the full-width weak training step (configs/Omni_combined.yaml, 38
+     classes, bf16, batch 25 of tiny_batch at 512 px with 16 GT rows) through
+     create_train_state + train_step: one warm-up and 5 timed steps, every
+     loss finite, every update applied, K1 and K1-bwd launched twice per
+     step; one step under the profiler;
+ 13. K1 and K1-bwd held to their plain versions on that step's own
+     pyramid, boxes and gradients (box pooler R = 512, cube pooler R = 128
+     per image); K1-bwd's device time per call on them, CUDA events in
+     turns with the autograd backward of the library yardstick, the plain
+     version, the function's byte bound (g read, the level gradients
+     written once) and this implementation's zero + scatter + cast floor;
+ 14. print the kernels line (K1, K1-bwd, K2) and, last,
+     {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -72,9 +92,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_EX2_PER_S = 16 * 132 * 1.98e9
 K1_REPLACES = "weakcube_tpu/ops/roi_align_pallas.py:198"
 K1_SOURCE = "weakcube_tpu_torch/csrc/roi_align.cu"
+K1_BWD_REPLACES = "weakcube_tpu/ops/roi_align.py:403"
 K2_REPLACES = "weakcube_tpu/data/pseudo_gt/depth_anything_v2.py:37"
 K2_SOURCE = "weakcube_tpu_torch/csrc/flash_attention.cu"
 DEPTH_BATCH, DEPTH_SIZE, DEPTH_IMAGES = 16, 518, 32
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_GT, TRAIN_STEPS = 25, 512, 16, 5
 
 
 def fail(msg: str) -> None:
@@ -198,6 +220,41 @@ def library_roi_align(levels, boxes, strides, out_size: int, sr: int):
     return run
 
 
+def roi_align_bwd_bound(shapes, dtype, boxes, strides, out_size: int, sr: int):
+    """Least time for one K1-bwd call, the function's own: g read once, the
+    boxes read once and every level's gradient written once in the level
+    dtype, against the float32 operations of the scatter (per g value:
+    sr^2 samples x 4 corners x multiply-add). Also returns the floor of this
+    implementation's bytes (`impl_floor_ms`): g read once, the float32
+    gradient pixels the boxes touch (their union per image and level, from
+    footprint) added to once, the float32 level buffers zeroed and, for
+    bf16 levels, read and cast once.
+    Returns (ms, "bytes" or "operations", bytes, impl_floor_ms, impl_bytes)."""
+    import torch
+    from weakcube_tpu_torch.ops.roi_align_cuda import footprint
+    metas = [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
+    fp = footprint(metas, boxes, strides, out_size, sr)
+    elt = metas[0].element_size()
+    n_level = sum(m.numel() for m in metas)
+    nbytes = fp["out_bytes"] + boxes.numel() * 4 + n_level * elt
+    impl = (fp["out_bytes"] + boxes.numel() * 4 + fp["touched_bytes"] // elt * 4
+            + n_level * 4 + (n_level * (4 + elt) if dtype != torch.float32 else 0))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = fp["out_bytes"] // elt * sr * sr * 4 * 2 / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            max(impl / PEAK_BYTES_PER_S, t_ops) * 1e3, impl)
+
+
+def library_roi_align_backward(levels, boxes, strides, out_size: int, sr: int, g):
+    """Yardstick the port never calls: the autograd backward of
+    library_roi_align (F.grid_sample + the sr x sr mean) for cotangent g;
+    the forward runs once beforehand, the closure times the backward."""
+    import torch
+    lv = [f.detach().requires_grad_() for f in levels]
+    out = library_roi_align(lv, boxes, strides, out_size, sr)()
+    return lambda: torch.autograd.grad(out, lv, g, retain_graph=True)
+
+
 def check_close(name, got, want, atol, rtol):
     import torch
     err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
@@ -259,6 +316,13 @@ def profile_forward(model, batch, top: int = 12):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / busy_us:5.1f}%"
               f" x{e.count:<5d} {e.key[:110]}")
     return n_copies
+
+
+def check_grads(name, got, want, atol, rtol):
+    """check_close over the per-level gradients of K1-bwd, laid end to end."""
+    import torch
+    return check_close(name, torch.cat([g.flatten() for g in got]),
+                       torch.cat([w.flatten() for w in want]), atol, rtol)
 
 
 def edge_boxes(B, R, size, gen, device):
@@ -483,6 +547,267 @@ def depth_phases(dev):
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
+def k1_backward_checks(dev, fwd_levels, fwd_boxes):
+    """Phase 10: K1-bwd against its plain version (the explicit scatter) on
+    the card, float32 and bfloat16, on the forward checks' box sets, the
+    detection forward's own pyramid and proposals, and no RoIs; a second
+    launch on the same inputs must agree within the same tolerance (the
+    atomics' order changes from run to run)."""
+    import numpy as np
+    import torch
+    from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from torch_roi_boxes import BOX_SETS, box_set
+
+    bwd, plain = roi_align_cuda.roi_align_backward, roi_align_cuda.plain_backward
+    # float32: the atomics (and the plain version's index_add_) add the
+    # RoIs' contributions in a run-dependent order, and a bin's weights are
+    # summed separably: a pixel under ~100 overlapping RoIs sums ~100 terms
+    # of O(1), so ~1e-5 of that sum; bfloat16: both accumulate in float32
+    # and round once, at most one bf16 step apart
+    tols = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(5)
+    B, C, size = 8, 256, 512
+
+    def compare(name, shapes, dt, boxes, out_size=7, sr=2):
+        g = torch.randn((*boxes.shape[:2], out_size, out_size, shapes[0][-1]), generator=gen,
+                        device=dev).to(dt)
+        before = bwd.launches
+        got = bwd(g, boxes, shapes, dt, FPN_STRIDES, out_size, sr)
+        again = bwd(g, boxes, shapes, dt, FPN_STRIDES, out_size, sr)
+        torch.cuda.synchronize()
+        if bwd.launches != before + (2 if boxes.shape[1] else 0):
+            fail(f"K1-bwd {name}: {bwd.launches - before} launches for 2 calls")
+        for a, s in zip(got, shapes):
+            if a.shape != s or a.dtype != dt or not a.is_contiguous():
+                fail(f"K1-bwd {name}: gradient {tuple(a.shape)} {a.dtype} strides {a.stride()}")
+        want = plain(g, boxes, shapes, [dt] * len(shapes), FPN_STRIDES, out_size, sr)
+        check_grads(f"{str(dt)[6:]} {name}", got, want, *tols[dt])
+        check_grads(f"{str(dt)[6:]} {name}, second launch", again, got, *tols[dt])
+
+    print("[compare] K1-bwd vs plain, synthetic pyramid b8 x 256 channels at 512 px")
+    shapes = [(B, size // s, size // s, C) for s in FPN_STRIDES]
+    for dt in (torch.float32, torch.bfloat16):
+        for R in (1000, 100):
+            compare(f"edge boxes R={R}", shapes, dt, edge_boxes(B, R, size, gen, dev))
+        compare("p3-p5 squares R=1000", shapes, dt, large_boxes(B, 1000, size, gen, dev))
+        for name in BOX_SETS:
+            compare(f"{name} boxes R=200", shapes, dt,
+                    torch.from_numpy(box_set(name, rng, B, 200, size)).to(dev))
+        compare("(5, 3) edge boxes R=100", shapes, dt, edge_boxes(B, 100, size, gen, dev), 5, 3)
+        compare("no RoIs", shapes, dt, torch.zeros((B, 0, 4), device=dev))
+    print("[compare] K1-bwd vs plain on the detection forward's pyramid and proposals")
+    compare(f"forward's proposals R={fwd_boxes.shape[1]}", [tuple(f.shape) for f in fwd_levels],
+            fwd_levels[0].dtype, fwd_boxes)
+
+
+def train_phases(dev):
+    """Phases 11-13: the small training step card vs CPU; the full-width
+    weak training step (configs/Omni_combined.yaml, 38 classes, 512 px,
+    batch 25, bf16) through create_train_state + train_step; K1 and K1-bwd
+    held to their plain versions on the step's own pooler inputs, and K1-bwd
+    timed on them. Returns K1-bwd's entry of the kernels line and K1's
+    largest error on the step's inputs."""
+    import numpy as np
+    import torch
+    from weakcube_tpu_torch.entry import dims_priors, flagship_cfg, tiny_batch
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
+    from torch_train_check import train_step_card_vs_cpu
+
+    K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
+
+    # -- 11. the small training step, card vs CPU ---------------------------
+    rep = train_step_card_vs_cpu(dev)
+    print(f"[reference] small float32 training step, card vs CPU (the same injected anchor "
+          f"labels and RoIs): {rep['n_losses']} losses and metrics, {rep['n_grads']} gradients "
+          f"and {rep['n_params']} parameters and statistics after the update agree (worst "
+          f"relative error {', '.join(f'{k} {v:.3e}' for k, v in rep['worst_rel'].items())}; "
+          f"bound: 1e-4 of scale, 1e-5 for parameters, plus 3x the CPU float32 step's distance "
+          f"to its float64 step); the heads' gradient reaches the FPN through K1-bwd "
+          f"(|d heads / d fpn_output2| = {rep['heads_to_fpn_grad']:.4e})")
+
+    # -- 12. the full-width training step -----------------------------------
+    cfg = flagship_cfg(TRAIN_SIZE)
+    ncls = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    t = time.time()
+    model = build_model(cfg, dims_priors(ncls), device=dev, seed=0)
+    state, opt = create_train_state(cfg, model)
+    batch = tiny_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, G=TRAIN_GT, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    print(f"[train model] {cfg.MODEL.META_ARCHITECTURE} / {cfg.MODEL.ROI_HEADS.NAME} "
+          f"{cfg.MODEL.DLA.TYPE} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, {ncls} classes, compute "
+          f"{cfg.TPU.COMPUTE_DTYPE}, losses {list(cfg.loss_functions)}, SGD lr "
+          f"{cfg.SOLVER.BASE_LR} (warmup factor {cfg.SOLVER.WARMUP_FACTOR} over "
+          f"{cfg.SOLVER.WARMUP_ITERS}), batch {TRAIN_BATCH} x {TRAIN_SIZE} px, {TRAIN_GT} GT "
+          f"rows, built in {time.time() - t:.1f} s")
+    n_steps = 1 + TRAIN_STEPS  # one warm-up + the timed steps
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = bwd.launches = 0
+    times, all_logs = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, logs = train_step(model, opt, state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        all_logs.append(logs)
+    k1_launches, bwd_launches = K1.launches, bwd.launches
+    bad = [(i, k) for i, l in enumerate(all_logs) for k, v in l.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"non-finite training logs (step, key): {bad[:8]}")
+    if state.applied != n_steps or state.skipped:
+        fail(f"{state.applied} of {n_steps} updates applied, {state.skipped} skipped: "
+             f"{all_logs[-1]}")
+    if k1_launches != 2 * n_steps or bwd_launches != 2 * n_steps:
+        fail(f"K1 launched {k1_launches} and K1-bwd {bwd_launches} times in {n_steps} steps, "
+             "expected 2 each per step (box and cube pooler)")
+    ms = statistics.median(times[1:])
+    print(f"[train] {n_steps} steps: applied {state.applied}, skipped {state.skipped}; every "
+          f"loss finite; K1 launches {k1_launches}, K1-bwd launches {bwd_launches} (2 + 2 per "
+          f"step); peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    print(f"[train] losses of the last step: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in all_logs[-1].items()))
+    print(f"[timing] train step b{TRAIN_BATCH} @ {TRAIN_SIZE} px bf16: median {ms:.3f} ms over "
+          f"{TRAIN_STEPS} (each {', '.join(f'{x:.3f}' for x in times)} ms, first is the "
+          f"warm-up; spread {min(times[1:]):.3f}-{max(times[1:]):.3f} ms), "
+          f"{TRAIN_BATCH * 1e3 / ms:.2f} images/s")
+
+    # one more step under the profiler, then one whose two K1 calls (pyramid
+    # and boxes) and two K1-bwd calls (g and boxes) are kept, to hold both
+    # kernels to their plain versions on the step's own inputs and to time
+    # K1-bwd on them
+    profile_step(lambda: train_step(model, opt, state, batch, gen))
+    fwd_calls, bwd_calls = [], []
+    fwd = roi_align_cuda._forward
+
+    def keep_fwd(features, boxes, *args):
+        fwd_calls.append(([f.detach().clone() for f in features], boxes.clone(), args))
+        return fwd(features, boxes, *args)
+
+    def keep_bwd(g, boxes, *args):
+        bwd_calls.append((g.detach().clone(), boxes, args))
+        return bwd(g, boxes, *args)
+    keep_bwd.launches = 0  # the wrapper counts on the module's name, which is this now
+    roi_align_cuda._forward, roi_align_cuda.roi_align_backward = keep_fwd, keep_bwd
+    try:
+        train_step(model, opt, state, batch, gen)
+    finally:
+        roi_align_cuda._forward, roi_align_cuda.roi_align_backward = fwd, bwd
+    torch.cuda.synchronize()
+    if len(fwd_calls) != 2 or len(bwd_calls) != 2:
+        fail(f"the kept step made {len(fwd_calls)} K1 and {len(bwd_calls)} K1-bwd calls, "
+             "expected 2 each")
+    # the forward meets the box pooler first, the backward the cube pooler;
+    # the box pooler has the more RoIs
+    fwd_calls.sort(key=lambda c: -c[1].shape[1])
+    bwd_calls.sort(key=lambda c: -c[1].shape[1])
+
+    # -- 13. K1 and K1-bwd on the step's own inputs ---------------------------
+    # bf16 levels: kernel and plain version both sum in float32 and round
+    # once to bf16, so they differ by at most one bf16 step of the value
+    # (2^-8 of it, under rtol 1e-2) plus the float32 sums' order (about 1e-6
+    # of the summed magnitudes); atol is 1e-3 of the largest |value| (2e-5
+    # for float32 levels) because the step's gradients are far below the
+    # O(1) that phase 10's absolute tolerances assume
+    print(f"[compare] K1 and K1-bwd vs plain on the training step's own pyramid, boxes and "
+          f"gradients (b{TRAIN_BATCH} @ {TRAIN_SIZE} px)")
+    errs = {"K1": 0.0, "K1-bwd": 0.0}
+    for name, (levels, boxes, args), (g, gboxes, bargs) in zip(("box pooler", "cube pooler"),
+                                                                fwd_calls, bwd_calls):
+        if not torch.equal(boxes, gboxes):
+            fail(f"{name}: the kept K1 and K1-bwd calls pooled other boxes")
+        strides, out_size, sr, min_level = args
+        want = roi_align_cuda.plain(levels, boxes, strides, out_size, sr, min_level)
+        rtol, atol = (1e-2, 1e-3) if levels[0].dtype == torch.bfloat16 else (1e-5, 2e-5)
+        errs["K1"] = max(errs["K1"], check_close(
+            f"K1 {name} R={boxes.shape[1]} {str(levels[0].dtype)[6:]}",
+            K1(levels, boxes, strides, out_size, sr, min_level), want,
+            atol * want.float().abs().max().item(), rtol))
+        shapes, dt = bargs[0], bargs[1]
+        want = roi_align_cuda.plain_backward(g, gboxes, shapes, [dt] * len(shapes), *bargs[2:])
+        scale = max(w.float().abs().max().item() for w in want)
+        errs["K1-bwd"] = max(errs["K1-bwd"], check_grads(
+            f"K1-bwd {name} R={gboxes.shape[1]} {str(dt)[6:]} (max |grad| {scale:.3e})",
+            bwd(g, gboxes, *bargs), want, atol * scale, rtol))
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "impl_ms": 0.0}
+    bound_by = None
+    for name, (levels, _, _), (g, boxes, args) in zip(("box pooler", "cube pooler"), fwd_calls,
+                                                       bwd_calls):
+        shapes, dt, strides, out_size, sr = args[0], args[1], args[2], args[3], args[4]
+        call = lambda: bwd(g, boxes, *args)
+        lib = library_roi_align_backward(levels, boxes, strides, out_size, sr, g)
+        turns = {"K1-bwd": (call, 20), "library": (lib, 3)}
+        rounds = {k: [] for k in turns}
+        for r in range(5):
+            for k in (list(turns) if r % 2 == 0 else list(turns)[::-1]):
+                rounds[k].append(timed_ms(turns[k][0], turns[k][1], warmup=1))
+        ev_ms, lib_ms = statistics.median(rounds["K1-bwd"]), statistics.median(rounds["library"])
+        dev_ms = kernel_device_ms(call, 20)
+        plain_ms = timed_ms(lambda: roi_align_cuda.plain_backward(
+            g, boxes, shapes, [dt] * len(shapes), strides, out_size, sr), 2, warmup=1)
+        bound, by, nbytes, impl_ms, impl_bytes = roi_align_bwd_bound(shapes, dt, boxes, strides,
+                                                                     out_size, sr)
+        bound_by = bound_by or by
+        for k, x in (("ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                     ("library_ms", lib_ms), ("impl_ms", impl_ms)):
+            tot[k] += x
+        print(f"[timing] K1-bwd {name} R={boxes.shape[1]} {str(dt)[6:]}: {dev_ms:.4f} ms of "
+              f"device time per call (zeroing, kernel and cast; 20 calls queued behind a sleep "
+              f"kernel); {ev_ms:.4f} ms per call by CUDA events (median; rounds "
+              f"{' '.join(f'{x:.4f}' for x in rounds['K1-bwd'])}); bound {bound:.4f} ms by {by} "
+              f"(g read and the level gradients written once, {nbytes:.4e} B; "
+              f"{100 * bound / dev_ms:.1f}% of it); this implementation's zero + scatter + "
+              f"cast floor {impl_ms:.4f} ms ({impl_bytes:.4e} B; {100 * impl_ms / dev_ms:.1f}% "
+              f"of it); plain {plain_ms:.3f} ms; library (autograd of F.grid_sample + mean) "
+              f"{lib_ms:.3f} ms (median; rounds "
+              f"{' '.join(f'{x:.3f}' for x in rounds['library'])})")
+    print(f"[timing] K1-bwd per step (box + cube pooler): {tot['ms']:.4f} ms of device time, "
+          f"bound {tot['bound_ms']:.4f} ms, implementation floor {tot['impl_ms']:.4f} ms, of a "
+          f"{ms:.3f} ms step")
+    return {"name": "roi_align_backward (ROIAlignV2 feature gradient), box + cube pooler per "
+                    "training step",
+            "route": "cuda", "source": K1_SOURCE, "replaces": K1_BWD_REPLACES,
+            "launches": bwd_launches, "max_abs_err": errs["K1-bwd"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": bound_by,
+            "library_ms": tot["library_ms"]}, errs["K1"]
+
+
+def profile_step(step, top: int = 14):
+    """torch.profiler over one training step: the device's busy share of its
+    wall time, its kernel launches, the kernels that take most of it, and
+    K1's and K1-bwd's launches in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        print("[profile] the profiler recorded no device time: busy share not measured")
+        return
+    n = {name: sum(e.count for e in kernels if e.key.startswith(name + "<") or
+                   e.key.startswith("void " + name + "<"))
+         for name in ("roi_align_kernel", "roi_align_bwd_kernel")}
+    print(f"[profile] one training step under the profiler: wall {wall_us / 1e3:.3f} ms, device "
+          f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), idle "
+          f"{100 * (1 - busy_us / wall_us):.1f}%, {sum(e.count for e in kernels)} kernel "
+          f"launches; K1 {n['roi_align_kernel']}, K1-bwd {n['roi_align_bwd_kernel']} launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / busy_us:5.1f}%"
+              f" x{e.count:<5d} {e.key[:110]}")
+
+
 def main() -> None:
     try:
         import torch
@@ -491,6 +816,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA device")
     sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tests"))  # box sets and the train-step check
     try:
         from weakcube_tpu_torch.entry import (dims_priors, flagship_cfg, make_batch,
                                               tiny_cfg)
@@ -610,7 +936,7 @@ def main() -> None:
         got = K1(levels, bx, FPN_STRIDES, res, sr)
         want = plain(levels, bx, FPN_STRIDES, res, sr)
         tol = (1e-2, 1e-2) if levels[0].dtype == torch.bfloat16 else (2e-5, 1e-5)
-        check_close(f"{name} R={bx.shape[1]}", got, want, *tol)
+        max_err[name] = check_close(f"{name} R={bx.shape[1]}", got, want, *tol)
 
     # a small float32 model on the card against the same model on the CPU
     small = tiny_cfg(image_size=128, dla=True)
@@ -708,20 +1034,27 @@ def main() -> None:
               f"{bd['whole'][0]:.4f} ms over the whole pyramid; staged L2->SM "
               f"{bd['staged_bytes']:.4e} B")
     profile_forward(model, batch)
+
+    # -- 10. K1-bwd against its plain version --------------------------------
+    k1_backward_checks(dev, levels, props.boxes.contiguous())
     del model, feats, levels, calls, det, det2d, props
     torch.cuda.empty_cache()
 
     # -- 7.-9. K2 and the depth pseudo-GT path -------------------------------
     k2 = depth_phases(dev)
+    torch.cuda.empty_cache()
+
+    # -- 11.-13. the training step ---------------------------------------------
+    k1_bwd, max_err["train"] = train_phases(dev)
     print(f"[done] total run {time.time() - t_start:.1f} s")
 
-    # -- 10. result lines ---------------------------------------------------
+    # -- 14. result lines ---------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align (ROIAlignV2 fwd), box + cube pooler per forward",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "max_abs_err": max(max_err.values()),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": bound_by, "library_ms": tot["library_ms"]}, k2]}))
+        "bound_by": bound_by, "library_ms": tot["library_ms"]}, k1_bwd, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -121,6 +121,94 @@ def test_kernel_refuses_nchw_levels(card):
         roi_align_cuda.multilevel_roi_align(feats, torch.zeros((1, 3, 4), device=card), STRIDES)
 
 
+def backward_tol(dt):
+    """float32: atomics (and the plain version's index_add_) add the RoIs'
+    contributions in a run-dependent order and the kernel sums a bin's
+    weights separably; a pixel under ~100 overlapping RoIs sums ~100 terms
+    of O(1) (atol 2e-4, rtol 2e-5); bfloat16: both accumulate in float32
+    and round once to bf16, at most one bf16 step apart (1e-2 + 1e-2
+    rel)."""
+    return dict(atol=2e-4, rtol=2e-5) if dt == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("boxes_name", BOX_SETS)
+@pytest.mark.parametrize("out_size,sr", [(7, 2), (5, 3), (7, 1)])
+@pytest.mark.parametrize("C", [5, 6, 64, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_matches_plain(card, dtype, C, out_size, sr, boxes_name):
+    """K1-bwd against the plain scatter: one launch per call, gradients
+    NHWC-contiguous in the level dtype; a second launch on the same inputs
+    agrees within the same tolerance (the atomics' order changes)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(10)
+    shapes = [(2, 256 // s, 256 // s, C) for s in STRIDES]
+    boxes = torch.from_numpy(box_set(boxes_name, rng, 2, 50, 256)).to(card)
+    g = torch.from_numpy(rng.normal(size=(2, 50, out_size, out_size, C)).astype(np.float32))
+    g = g.to(card, dt)
+    before = roi_align_cuda.roi_align_backward.launches
+    got = roi_align_cuda.roi_align_backward(g, boxes, shapes, dt, STRIDES, out_size, sr)
+    again = roi_align_cuda.roi_align_backward(g, boxes, shapes, dt, STRIDES, out_size, sr)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.roi_align_backward.launches == before + 2
+    want = t_ra.multilevel_roi_align_backward(g, boxes, shapes, [dt] * 5, STRIDES, out_size, sr)
+    for a, b, w, s in zip(got, again, want, shapes):
+        assert a.shape == s and a.dtype == dt and a.is_contiguous()
+        torch.testing.assert_close(a.float(), w.float(), **backward_tol(dt))
+        torch.testing.assert_close(b.float(), a.float(), **backward_tol(dt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_many_rois(card, dtype):
+    """Thousands of overlapping RoIs of every box set adding into the same
+    pixels at once."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    boxes = np.concatenate([box_set(n, rng, 2, 800, 256) for n in BOX_SETS], 1)
+    boxes = torch.from_numpy(np.ascontiguousarray(boxes)).to(card)
+    shapes = [(2, 256 // s, 256 // s, 256) for s in STRIDES]
+    g = torch.randn((2, boxes.shape[1], 7, 7, 256), device=card).to(dt)
+    got = roi_align_cuda.roi_align_backward(g, boxes, shapes, dt, STRIDES)
+    want = t_ra.multilevel_roi_align_backward(g, boxes, shapes, [dt] * 5, STRIDES)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), **backward_tol(dt))
+
+
+def test_backward_no_rois_launches_nothing(card):
+    before = roi_align_cuda.roi_align_backward.launches
+    grads = roi_align_cuda.roi_align_backward(
+        torch.zeros((2, 0, 7, 7, 64), device=card), torch.zeros((2, 0, 4), device=card),
+        [(2, 64 // s, 64 // s, 64) for s in STRIDES], torch.float32, STRIDES)
+    assert roi_align_cuda.roi_align_backward.launches == before
+    assert all(g.shape == (2, 64 // s, 64 // s, 64) and not g.any()
+               for g, s in zip(grads, STRIDES))
+
+
+def test_pooler_autograd_on_card(card):
+    """The pooler the heads call is differentiable in the levels on the card:
+    backward through it launches K1-bwd once and gives the plain scatter's
+    gradient; the boxes get none."""
+    rng = np.random.default_rng(12)
+    feats = [f.requires_grad_() for f in pyramid(card, torch.float32, rng, 64)]
+    boxes = torch.from_numpy(box_set("levels", rng, 2, 40, 256)).to(card)
+    out = roi_align_cuda.multilevel_roi_align(feats, boxes, STRIDES, 7, 2)
+    g = torch.randn(out.shape, device=card)
+    before = roi_align_cuda.roi_align_backward.launches
+    got = torch.autograd.grad(out, feats, g)
+    assert roi_align_cuda.roi_align_backward.launches == before + 1
+    want = t_ra.multilevel_roi_align_backward(g, boxes, [f.shape for f in feats],
+                                              [torch.float32] * 5, STRIDES)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **backward_tol(torch.float32))
+
+
+def test_train_step_card_matches_cpu(card):
+    """The small training step on the card against the CPU, and the heads'
+    gradient reaching the FPN through K1-bwd (tests/torch_train_check.py)."""
+    from torch_train_check import train_step_card_vs_cpu
+    report = train_step_card_vs_cpu(card)
+    assert report["heads_to_fpn_grad"] > 0
+
+
 def test_small_model_card_matches_cpu(card):
     """The flagship meta-arch at the small float32 size: the same weights on
     the card (kernel pooler) and on the CPU (plain pooler) give the same

@@ -1,4 +1,5 @@
-// Multi-level ROIAlignV2 forward for NVIDIA Hopper (sm_90a).
+// Multi-level ROIAlignV2 forward (K1) and its feature gradient (K1-bwd,
+// after the forward, from "Backward" on) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel weakcube_tpu/ops/roi_align_pallas.py
 // (_roi_align_kernel, launched by roi_align_pallas_single and batched by
@@ -524,5 +525,211 @@ extern "C" int roi_align_forward(int dtype, int vec, const void* const* level_pt
     return launch_shape<__nv_bfloat16, 8>(pyr, boxes, out, B, R, C, out_size, sampling_ratio, s);
   if (dtype == 1 && vec == 1)
     return launch_shape<__nv_bfloat16, 1>(pyr, boxes, out, B, R, C, out_size, sampling_ratio, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Backward: the feature gradient of the forward above (K1-bwd).
+//
+// Replaces the XLA backward the JAX package trains with,
+// weakcube_tpu/ops/roi_align.py::matmul_bwd (two dense contractions per
+// level against hat-function matrices, under the custom_vjp of
+// multilevel_roi_align_trainable). ROIAlign is linear in the features, so
+// the gradient is the forward's transpose: g (B, R, P, P, C) is scattered
+// through the same bilinear weights into each level's gradient, with the
+// same level assignment, the same sample coordinates (the same __f*_rn
+// rounding), the same clamp to [0, size - 1] and the same sr x sr mean.
+//
+// Bound on the card: bytes. g is read once (bf16 at b25, R = 512, C = 256:
+// 321 MB for the box pooler) and each touched gradient pixel is added to;
+// the level buffers are zeroed before and, in bf16, cast once after
+// (chip_smoke.py works the bound out from ops/roi_align_cuda.py::footprint).
+//
+// Design (the simple, right first version): one block per RoI. Threads
+// place the samples of both axes as the forward does, then build per axis
+// the RoI's gradient lines (the compact run of touched lines when it holds
+// at most 2P of them, else the lo and hi line of each sample in turn: an
+// elongated RoI costs no more than 2P x 2P pixels) and, per line, the
+// contiguous range of bins whose samples touch it with their summed
+// weights (the 1 / sr of the bin mean folded in). Each thread then takes a
+// (pixel, 16-byte channel vector) of the RoI's window, sums the bins
+// covering it separably from g (read through L1, float32 FMA), and adds the
+// sum to the float32 level gradient with vector atomics: one atomic per
+// window pixel and 4 channels, not one per sample and corner. Atomics make
+// the order of the additions from different RoIs change from run to run,
+// so two launches agree to float32 rounding of the sums, not bitwise.
+// A RoI's window is at most 2P x 2P pixels; overlapping RoIs add into the
+// same pixels in any order.
+
+__device__ __forceinline__ void red_add(float* p, const float* v, int n) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  if (n == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    return;
+  }
+#endif
+  for (int e = 0; e < n; ++e) atomicAdd(p + e, v[e]);
+}
+
+struct GradPyramid {
+  float* ptr[MAX_LEVELS];              // float32 (B, H, W, C) gradient of each level
+  int height[MAX_LEVELS];
+  int width[MAX_LEVELS];
+  float scale[MAX_LEVELS];             // 1 / stride
+  int n_levels;
+  int min_level;
+};
+
+// V: channels per thread (4 float32 / 8 bf16 from 16-byte loads of g, or 1)
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+roi_align_bwd_kernel(GradPyramid pyr, const float* __restrict__ boxes, const T* __restrict__ g,
+                     int R, int C, int out_size, int nsr) {
+  __shared__ int lo[2][MAX_SAMPLES], hi[2][MAX_SAMPLES];
+  __shared__ float frac[2][MAX_SAMPLES];
+  __shared__ int line[2][MAX_LINES];   // element offset of each gradient line
+  __shared__ int bin0[2][MAX_LINES], bin1[2][MAX_LINES];
+  __shared__ float wt[2][MAX_LINES][MAX_SAMPLES];  // [axis][line][bin]
+  const int roi = blockIdx.x, b = roi / R;
+  const float4 box = load_box(boxes, roi);
+  const int P = out_size * nsr;
+
+  // level assignment and sample placement, as the forward's make_plan
+  const float w = fmaxf(box.z - box.x, 0.f);
+  const float h = fmaxf(box.w - box.y, 0.f);
+  const float lvlf = floorf(4.f + log2f(sqrtf(w * h) / 224.f + 1e-8f));
+  const int lo_lvl = pyr.min_level, hi_lvl = pyr.min_level + pyr.n_levels - 1;
+  const int lvl = (int)fminf(fmaxf(lvlf, (float)lo_lvl), (float)hi_lvl) - lo_lvl;
+  const int H = pyr.height[lvl], W = pyr.width[lvl];
+  if (threadIdx.x < 2 * P) {
+    const int axis = threadIdx.x < P ? 0 : 1, p = threadIdx.x - axis * P;
+    const float scale = pyr.scale[lvl];
+    const float a1 = __fsub_rn(__fmul_rn(axis ? box.x : box.y, scale), 0.5f);
+    const float a2 = __fsub_rn(__fmul_rn(axis ? box.z : box.w, scale), 0.5f);
+    const float len = fmaxf(a2 - a1, 1e-6f);
+    const int size = axis ? W : H;
+    const float c = fminf(fmaxf(__fadd_rn(a1, __fmul_rn(len, __fdiv_rn((float)p + 0.5f, (float)P))),
+                                0.f), (float)(size - 1));
+    const float l = floorf(c);
+    lo[axis][p] = (int)l;
+    hi[axis][p] = min((int)l + 1, size - 1);
+    frac[axis][p] = c - l;
+  }
+  __syncthreads();
+
+  // per axis the gradient lines: the compact run when it holds at most 2P
+  // lines, else the lo and hi line of every sample
+  const int run_y = hi[0][P - 1] - lo[0][0] + 1, run_x = hi[1][P - 1] - lo[1][0] + 1;
+  const int ny = run_y <= 2 * P ? run_y : 2 * P;
+  const int nx = run_x <= 2 * P ? run_x : 2 * P;
+  for (int t = threadIdx.x; t < ny + nx; t += blockDim.x) {
+    const int axis = t < ny ? 0 : 1;
+    const int k = t - axis * ny;
+    const bool rect = axis ? run_x <= 2 * P : run_y <= 2 * P;
+    float* wk = wt[axis][k];
+    for (int i = 0; i < out_size; ++i) wk[i] = 0.f;
+    int ln, b_lo = out_size, b_hi = -1;
+    if (rect) {
+      ln = lo[axis][0] + k;
+      for (int p = 0; p < P; ++p) {
+        const float f = frac[axis][p];
+        const bool at_lo = lo[axis][p] == ln, at_hi = hi[axis][p] == ln;
+        if (at_lo || at_hi) {
+          const int i = p / nsr;
+          if (at_lo) wk[i] += (1.f - f) / (float)nsr;
+          if (at_hi) wk[i] += f / (float)nsr;
+          b_lo = min(b_lo, i);
+          b_hi = max(b_hi, i);
+        }
+      }
+    } else {
+      const int p = k >> 1;
+      const float f = frac[axis][p];
+      ln = (k & 1) ? hi[axis][p] : lo[axis][p];
+      b_lo = b_hi = p / nsr;
+      wk[b_lo] = ((k & 1) ? f : 1.f - f) / (float)nsr;
+    }
+    line[axis][k] = ln * (axis ? C : W * C);
+    bin0[axis][k] = b_lo;
+    bin1[axis][k] = b_hi;
+  }
+  __syncthreads();
+
+  const int nvec = C / V;
+  float* grad = pyr.ptr[lvl] + (long long)b * H * W * C;
+  const T* gr = g + (long long)roi * out_size * out_size * C;
+  for (int q = threadIdx.x; q < ny * nx * nvec; q += blockDim.x) {
+    const int v = q % nvec, pix = q / nvec;
+    const int ky = pix / nx, kx = pix - (pix / nx) * nx;
+    const int i0 = bin0[0][ky], i1 = bin1[0][ky], j0 = bin0[1][kx], j1 = bin1[1][kx];
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+    for (int i = i0; i <= i1; ++i) {
+      const float wy = wt[0][ky][i];
+      float row[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) row[e] = 0.f;
+      for (int j = j0; j <= j1; ++j) {
+        const float wx = wt[1][kx][j];
+        float gv[V];
+        Vec<T, V>::load(gr + ((long long)i * out_size + j) * C + v * V, gv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) row[e] = fmaf(wx, gv[e], row[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = fmaf(wy, row[e], acc[e]);
+    }
+    float* dst = grad + line[0][ky] + line[1][kx] + v * V;
+#pragma unroll
+    for (int e = 0; e < V; e += (V >= 4 ? 4 : 1)) red_add(dst + e, acc + e, V >= 4 ? 4 : 1);
+  }
+}
+
+template <typename T, int V>
+static int launch_bwd(const GradPyramid& pyr, const float* boxes, const void* g, int B, int R,
+                      int C, int out_size, int sr, cudaStream_t stream) {
+  roi_align_bwd_kernel<T, V><<<B * R, 256, 0, stream>>>(
+      pyr, boxes, reinterpret_cast<const T*>(g), R, C, out_size, sr);
+  return (int)cudaGetLastError();
+}
+
+// Plain C interface of the backward, loaded with ctypes by
+// ops/roi_align_cuda.py.
+//   dtype: 0 float32, 1 bfloat16 (of g); vec: channels per 16-byte vector
+//   of g (float32 4, bfloat16 8) when C % vec == 0 and g is 16-byte
+//   aligned, else 1.
+// grad_ptrs: one zeroed float32 NHWC-contiguous (B, H_l, W_l, C) buffer per
+// level (H_l * W_l * C < 2^31), added to with atomics; boxes (B, R, 4)
+// float32; g (B, R, out_size, out_size, C) contiguous. Launches on `stream`
+// without synchronising; returns the CUDA error code of the launch.
+extern "C" int roi_align_backward(int dtype, int vec, void* const* grad_ptrs,
+                                  const int* heights, const int* widths, const float* scales,
+                                  int n_levels, int min_level, const float* boxes,
+                                  const void* g, int B, int R, int C, int out_size,
+                                  int sampling_ratio, void* stream) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS || out_size < 1 || sampling_ratio < 1 ||
+      out_size * sampling_ratio > MAX_SAMPLES || C < 1 || C % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B * R == 0) return 0;
+  GradPyramid pyr;
+  for (int l = 0; l < n_levels; ++l) {
+    if ((long long)heights[l] * widths[l] * C >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    pyr.ptr[l] = reinterpret_cast<float*>(grad_ptrs[l]);
+    pyr.height[l] = heights[l];
+    pyr.width[l] = widths[l];
+    pyr.scale[l] = scales[l];
+  }
+  pyr.n_levels = n_levels;
+  pyr.min_level = min_level;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 4)
+    return launch_bwd<float, 4>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
+  if (dtype == 0 && vec == 1)
+    return launch_bwd<float, 1>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
+  if (dtype == 1 && vec == 8)
+    return launch_bwd<__nv_bfloat16, 8>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
+  if (dtype == 1 && vec == 1)
+    return launch_bwd<__nv_bfloat16, 1>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -147,6 +147,11 @@ class Tree(nn.Module):
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root([x2, x1] + children)
+        if self.training and self.project is not None:
+            # dead for the output, but flax records the batch statistics of
+            # this projection in training, so its running statistics move
+            with torch.no_grad():
+                self.project(bottom)
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children)

@@ -1,4 +1,4 @@
-"""2D box head, predictor and static-shape inference
+"""2D box head, predictor, training losses and static-shape inference
 (weakcube_tpu/models/fast_rcnn.py)."""
 from __future__ import annotations
 
@@ -8,8 +8,9 @@ import torch
 import torch.nn as nn
 
 from ..ops import boxes as box_ops
+from ..ops import losses as loss_ops
 from ..ops import nms as nms_ops
-from ..structures import Detections, Proposals
+from ..structures import Detections, Proposals, SampledRois
 from .layers import Linear
 
 
@@ -38,6 +39,26 @@ class FastRCNNPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.cls_score(x), self.bbox_pred(x)
+
+
+def fast_rcnn_losses(scores: torch.Tensor, deltas: torch.Tensor, rois: SampledRois,
+                     gt_boxes_matched: torch.Tensor, num_classes: int,
+                     box_reg_weights=(10.0, 10.0, 5.0, 5.0), smooth_l1_beta: float = 0.0):
+    """Masked Fast R-CNN losses over (B, S) sampled RoIs: cross entropy
+    averaged over the valid RoIs, and class-specific smooth-L1 summed over
+    the fg RoIs over the valid count. gt_boxes_matched: (B, S, 4)."""
+    valid = rois.valid
+    fg = rois.fg & valid
+    labels = torch.where(fg, rois.classes, torch.full_like(rois.classes, num_classes))
+    loss_cls = loss_ops.masked_mean(loss_ops.softmax_cross_entropy(scores, labels), valid)
+    B, S = labels.shape
+    d = deltas.reshape(B, S, num_classes, 4)
+    cls = rois.classes.long().clamp(0, num_classes - 1)
+    d_fg = torch.gather(d, 2, cls[..., None, None].expand(B, S, 1, 4))[:, :, 0]
+    gt_d = box_ops.get_deltas(rois.boxes, gt_boxes_matched, box_reg_weights)
+    reg = box_ops.smooth_l1(d_fg, gt_d, smooth_l1_beta).sum(-1)
+    loss_reg = torch.where(fg, reg, torch.zeros_like(reg)).sum() / valid.sum().clamp(min=1)
+    return {"BoxHead/loss_cls": loss_cls, "BoxHead/loss_box_reg": loss_reg}
 
 
 def predict_boxes(deltas: torch.Tensor, proposal_boxes: torch.Tensor,

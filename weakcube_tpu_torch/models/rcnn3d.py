@@ -1,15 +1,20 @@
 """Meta-architectures RCNN3D (supervised) and RCNN3D_combined_features
-(weak), inference forward, and the registry-driven `build_model`
-(weakcube_tpu/models/rcnn3d.py).
+(weak), their inference and training forwards, and the registry-driven
+`build_model` (weakcube_tpu/models/rcnn3d.py).
 
 The model is a function of a padded batch dict: "image" (B, H, W, 3) uint8
 (normalised here) or float32 (already normalised), "image_wh" (B, 2) and "K"
-(B, 3, 3). Module names follow the reference's detectron2 state dict
-(backbone.*, proposal_generator.rpn_head.*, roi_heads.*).
+(B, 3, 3). In training mode (`model.train()`) it also takes "gt" (a
+GroundTruth), optionally "rpn_labels" (precomputed RPNLabels), and for the
+weak heads "depth_map" (B, H, W) float16 or float32, "ground_mask" (B, H, W)
+bool, "ground_valid" (B,), "ground_normal" (B, 3) and "ground_normal_valid"
+(B,); it returns (losses, metrics). Module names follow the reference's
+detectron2 state dict (backbone.*, proposal_generator.rpn_head.*,
+roi_heads.*).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -91,12 +96,47 @@ class RCNN3D(nn.Module):
             cfg.MODEL.RPN.PRE_NMS_TOPK_TEST, cfg.MODEL.RPN.POST_NMS_TOPK_TEST,
             cfg.MODEL.RPN.NMS_THRESH, tuple(cfg.MODEL.RPN.BBOX_REG_WEIGHTS))
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Detections:
-        if self.training:
-            raise NotImplementedError("training is not ported to PyTorch yet")
+    def _rpn_train(self, feats_dict, batch, generator):
+        """RPN losses (scaled by RPN.LOSS_WEIGHT) and the training
+        proposals, selected from logits and deltas without gradient."""
+        rc = self.cfg.MODEL.RPN
+        feats = [feats_dict[f] for f in rc.IN_FEATURES]
+        logits, deltas = self.proposal_generator.rpn_head(feats)
+        anchors_lvl = self._level_anchors(feats)
+        anchors = torch.cat(anchors_lvl, 0)
+        lab = batch.get("rpn_labels")
+        if lab is None:
+            lab = rpn_lib.label_and_sample_anchors(
+                generator, anchors, batch["gt"], rc.BATCH_SIZE_PER_IMAGE,
+                rc.POSITIVE_FRACTION, rc.IOU_THRESHOLDS, [0, -1, 1], rc.IGNORE_THRESHOLD)
+        losses = rpn_lib.rpn_losses(anchors, torch.cat(logits, 1), torch.cat(deltas, 1), lab,
+                                    rc.BATCH_SIZE_PER_IMAGE, tuple(rc.BBOX_REG_WEIGHTS),
+                                    rc.SMOOTH_L1_BETA)
+        proposals = rpn_lib.select_proposals(
+            anchors_lvl, [l.detach() for l in logits], [d.detach() for d in deltas],
+            batch["image_wh"], rc.PRE_NMS_TOPK_TRAIN, rc.POST_NMS_TOPK_TRAIN,
+            rc.NMS_THRESH, tuple(rc.BBOX_REG_WEIGHTS))
+        return {k: v * rc.LOSS_WEIGHT for k, v in losses.items()}, proposals
+
+    def _roi_extra(self, batch) -> dict:
+        return {}
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> Union[Detections, Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
+        """Eval mode: Detections. Training mode: (losses, metrics), with the
+        anchor and RoI samples drawn from `generator` (on the batch's
+        device)."""
         feats = self.backbone(self._prep_image(batch["image"]))
-        proposals = self._proposals_from_feats(feats, batch)
-        return self.roi_heads(feats, proposals, batch["K"], batch["image_wh"])
+        if not self.training:
+            proposals = self._proposals_from_feats(feats, batch)
+            return self.roi_heads(feats, proposals, batch["K"], batch["image_wh"])
+        rpn_losses, proposals = self._rpn_train(feats, batch, generator)
+        losses, metrics = self.roi_heads.forward_train(
+            feats, proposals, batch["gt"], batch["K"], batch["image_wh"], generator,
+            **self._roi_extra(batch))
+        losses.update(rpn_losses)
+        return losses, metrics
 
 
 @register_meta_arch("RCNN3D_combined_features")
@@ -105,6 +145,15 @@ class RCNN3DCombinedFeatures(RCNN3D):
     depth / ground-map inputs only feed the training losses."""
 
     roi_heads_cls = ROIHeads3DScore
+
+    def _roi_extra(self, batch) -> dict:
+        dm = batch.get("depth_map")
+        return dict(depth_maps=None if dm is None else dm.float(),
+                    ground_masks=batch.get("ground_mask"),
+                    ground_valid=batch.get("ground_valid"),
+                    ground_normals=batch.get("ground_normal"),
+                    ground_normal_valid=batch.get("ground_normal_valid"),
+                    instance_masks=batch.get("instance_masks"))
 
 
 # initial weights that differ from the fan-in normal (the JAX modules'

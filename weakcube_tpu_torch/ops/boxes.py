@@ -1,5 +1,6 @@
 """2D box ops (weakcube_tpu/ops/boxes.py): area, clipping, pairwise IoU and
-the detectron2 Box2BoxTransform decode.
+IoA, matched IoU and GIoU, the detectron2 Box2BoxTransform encode and
+decode, and smooth-L1.
 
 Boxes are XYXY float tensors of shape (..., 4). Degenerate boxes give 0 area,
 not NaN.
@@ -41,6 +42,76 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     union = area(a)[..., :, None] + area(b)[..., None, :] - inter
     return torch.where(union > 0, inter / union.clamp(min=1e-12),
                        torch.zeros_like(inter))
+
+
+def pairwise_ioa(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., N, 4) x (..., M, 4) -> (..., N, M) intersection over the area
+    of b (ignore-region matching); 0 where b is empty."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    ab = area(b)[..., None, :]
+    return torch.where(ab > 0, inter / ab.clamp(min=1e-12), torch.zeros_like(inter))
+
+
+def _intersection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # max(., 0) with JAX's subgradient at the tie (1/2 to each side)
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = torch.maximum(rb - lt, torch.zeros_like(rb))
+    return wh[..., 0] * wh[..., 1]
+
+
+def elementwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matched IoU of aligned (..., 4) boxes."""
+    inter = _intersection(a, b)
+    union = area(a) + area(b) - inter
+    return torch.where(union > 0, inter / union.clamp(min=1e-12), torch.zeros_like(inter))
+
+
+def giou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise generalised IoU of aligned (..., 4) boxes."""
+    inter = _intersection(a, b)
+    union = area(a) + area(b) - inter
+    iou = inter / torch.maximum(union, torch.full_like(union, eps))
+    lt_c = torch.minimum(a[..., :2], b[..., :2])
+    rb_c = torch.maximum(a[..., 2:], b[..., 2:])
+    wh_c = torch.maximum(rb_c - lt_c, torch.zeros_like(rb_c))
+    area_c = wh_c[..., 0] * wh_c[..., 1]
+    return iou - (area_c - union) / torch.maximum(area_c, torch.full_like(area_c, eps))
+
+
+def giou_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """1 - GIoU, torchvision's `generalized_box_iou_loss` unreduced."""
+    return 1.0 - giou(pred, target)
+
+
+def get_deltas(src: torch.Tensor, target: torch.Tensor,
+               weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Regression targets (dx, dy, dw, dh) from src to target boxes."""
+    sw = src[..., 2] - src[..., 0]
+    sh = src[..., 3] - src[..., 1]
+    scx = src[..., 0] + 0.5 * sw
+    scy = src[..., 1] + 0.5 * sh
+    tw = target[..., 2] - target[..., 0]
+    th = target[..., 3] - target[..., 1]
+    tcx = target[..., 0] + 0.5 * tw
+    tcy = target[..., 1] + 0.5 * th
+    wx, wy, ww, wh = weights
+    sw = sw.clamp(min=1e-6)
+    sh = sh.clamp(min=1e-6)
+    return torch.stack([wx * (tcx - scx) / sw, wy * (tcy - scy) / sh,
+                        ww * torch.log(tw.clamp(min=1e-6) / sw),
+                        wh * torch.log(th.clamp(min=1e-6) / sh)], dim=-1)
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 0.0) -> torch.Tensor:
+    """Elementwise smooth-L1 (fvcore; beta = 0 is L1)."""
+    diff = torch.abs(pred - target)
+    if beta <= 0:
+        return diff
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
 
 
 def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,

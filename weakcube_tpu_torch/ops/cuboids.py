@@ -1,6 +1,6 @@
-"""Cuboid geometry for the inference decode (weakcube_tpu/ops/cuboids.py):
+"""Cuboid geometry (weakcube_tpu/ops/cuboids.py): corners, projection,
 allocentric -> egocentric pose, back-projection, scaled sigmoid and the
-`Cubes` struct.
+`Cubes` struct with its projected ("bube") corners and enclosing boxes.
 
 Conventions as in the JAX package: a cube is the 15-vector
 [center(3), dims whl(3), R row-major (9)]; K is a 3x3 pinhole intrinsics
@@ -8,11 +8,41 @@ matrix and the camera looks down +z.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import rotations
+
+# corner v0..v7 as the sign pattern of the local (x = l, y = h, z = w) half
+# dimensions (the reference's math_util.py vertex numbering)
+_CORNER_SIGNS = torch.tensor(
+    [[-1, -1, -1], [+1, -1, -1], [+1, +1, -1], [-1, +1, -1],
+     [-1, -1, +1], [+1, -1, +1], [+1, +1, +1], [-1, +1, +1]], dtype=torch.float32)
+
+
+def get_cuboid_verts_3d(box3d: torch.Tensor, R: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., 6) [x, y, z, w, h, l] and optional (..., 3, 3) R -> corners
+    (..., 8, 3)."""
+    ctr = box3d[..., 0:3]
+    half = 0.5 * torch.stack([box3d[..., 5], box3d[..., 4], box3d[..., 3]], dim=-1)
+    local = _CORNER_SIGNS.to(box3d.device, box3d.dtype) * half[..., None, :]
+    if R is not None:
+        dt = torch.promote_types(R.dtype, local.dtype)  # einsum does not promote
+        local = torch.einsum("...ij,...kj->...ki", R.to(dt), local.to(dt))
+    return local + ctr[..., None, :]
+
+
+def project_points(K: torch.Tensor, pts3d: torch.Tensor, min_z: float = 1e-6) -> torch.Tensor:
+    """Camera-space points (..., N, 3) through K (..., 3, 3) -> (u, v, z)
+    (..., N, 3); |z| below min_z divides by +-min_z, keeping z's sign."""
+    dt = torch.promote_types(K.dtype, pts3d.dtype)  # einsum does not promote
+    proj = torch.einsum("...ij,...nj->...ni", K.to(dt), pts3d.to(dt))
+    z = proj[..., 2:3]
+    safe_z = torch.where(torch.abs(z) < min_z,
+                         torch.where(z < 0, torch.full_like(z, -min_z), torch.full_like(z, min_z)),
+                         z)
+    return torch.cat([proj[..., :2] / safe_z, z], dim=-1)
 
 
 def _allocentric_correction(K: torch.Tensor, u: torch.Tensor,
@@ -75,3 +105,27 @@ class Cubes(NamedTuple):
     def from_parts(cls, centers, dims, R) -> "Cubes":
         flat_R = R.reshape(R.shape[:-2] + (9,))
         return cls(torch.cat([centers, dims, flat_R], dim=-1))
+
+    def corners(self) -> torch.Tensor:
+        """All 8 corners in camera space, (..., 8, 3)."""
+        return get_cuboid_verts_3d(self.tensor[..., :6], self.rotations)
+
+    def bube_corners(self, K: torch.Tensor, im_wh: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Projected corners (..., 8, 2), clamped into the extended frame
+        [-W/2 + 1, 2W - 1] x [-H/2 + 1, 2H - 1] when im_wh is given; the
+        clamp has jnp.clip's subgradient (1/2 at a bound)."""
+        uv = project_points(K, self.corners())[..., :2]
+        if im_wh is not None:
+            W, H = im_wh[..., 0:1], im_wh[..., 1:2]
+            x = torch.minimum(torch.maximum(uv[..., 0], (-W / 2 + 1).expand_as(uv[..., 0])),
+                              (2 * W - 1).expand_as(uv[..., 0]))
+            y = torch.minimum(torch.maximum(uv[..., 1], (-H / 2 + 1).expand_as(uv[..., 1])),
+                              (2 * H - 1).expand_as(uv[..., 1]))
+            uv = torch.stack([x, y], dim=-1)
+        return uv
+
+    def to_boxes(self, K: torch.Tensor, im_wh: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Enclosing XYXY boxes (..., 4) of the projected corners; amin/amax
+        split a tie between corners evenly, as jnp.min/max do."""
+        uv = self.bube_corners(K, im_wh)
+        return torch.cat([torch.amin(uv, dim=-2), torch.amax(uv, dim=-2)], dim=-1)

@@ -1,6 +1,7 @@
 """Rotation representation conversions (weakcube_tpu/ops/rotations.py): the
-6d, quaternion and euler parameterisations the cube head can select, and the
-axis-angle map the allocentric pose correction uses.
+6d, quaternion and euler parameterisations the cube head can select, the
+axis-angle map the allocentric pose correction uses, and the rotation
+angles the weak pose losses compare.
 
 All functions broadcast over leading batch dimensions. Matrices act on
 column vectors: ``x_rotated = R @ x``.
@@ -78,3 +79,37 @@ def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     a = angle[..., None]
     eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device).expand(K.shape)
     return eye + torch.sin(a) * K + (1.0 - torch.cos(a)) * (K @ K)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    # jnp.clip's subgradient at the bounds (1/2), which torch.clamp does not share
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)), torch.full_like(x, hi))
+
+
+def so3_rotation_angle(R: torch.Tensor, cos_angle: bool = False,
+                       eps: float = 1e-4) -> torch.Tensor:
+    """Rotation angle of R by the trace formula (or its cosine)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos = _clip((trace - 1.0) * 0.5, -1.0 + eps, 1.0 - eps)
+    return cos if cos_angle else torch.arccos(cos)
+
+
+def so3_relative_angle(R1: torch.Tensor, R2: torch.Tensor,
+                       cos_angle: bool = False) -> torch.Tensor:
+    """Angle of the relative rotation R1 @ R2^T."""
+    return so3_rotation_angle(R1 @ R2.transpose(-1, -2), cos_angle=cos_angle)
+
+
+def so3_relative_angle_pairs(R: torch.Tensor, mask=None, cos_angle: bool = True):
+    """Relative angles of all pairs within each set of rotations R
+    (..., N, 3, 3), from one Gram product. Returns (vals (..., N, N),
+    pair_mask): the mask is True on the strict lower triangle, where both
+    rotations are valid under `mask` (..., N)."""
+    n = R.shape[-3]
+    traces = torch.einsum("...ikl,...jkl->...ij", R, R)
+    cos = _clip((traces - 1.0) * 0.5, -1.0 + 1e-4, 1.0 - 1e-4)
+    vals = cos if cos_angle else torch.arccos(cos)
+    tri = torch.tril(torch.ones((n, n), dtype=torch.bool, device=R.device), diagonal=-1)
+    if mask is not None:
+        tri = tri & mask[..., :, None] & mask[..., None, :]
+    return vals, tri

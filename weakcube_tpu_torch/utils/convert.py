@@ -18,6 +18,10 @@ cube_head.feature_generator.fcN. It is the inverse of
 weakcube_tpu/utils/zoo_convert.py, extended to every DLA block type and to
 unshared cube-head branches.
 
+`flax_params_to_torch(tree)` maps any tree shaped like the flax params (a
+gradient, an update, a per-parameter label code) onto the port's parameter
+names the same way, without the BatchNorm running statistics.
+
 `dav2_flax_to_torch(params, variant)` does the same for the Depth Anything
 V2 pseudo-GT model (below).
 """
@@ -95,6 +99,22 @@ def flax_to_torch(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tens
         else:
             raise KeyError(f"unknown flax layer at {'/'.join(path)}: {sorted(leaf)}")
     return sd
+
+
+def flax_params_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the flax params -> {parameter name: tensor}, laid
+    out like the port's parameters (conv and dense kernels transposed)."""
+    stats = {}
+    for path, leaf in _layers(tree, []):
+        if "scale" in leaf:
+            node = stats
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            z = np.zeros(np.shape(leaf["scale"]), np.float32)
+            node[path[-1]] = {"mean": z, "var": z}
+    sd = flax_to_torch(tree, stats)
+    return {k: v for k, v in sd.items()
+            if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
 
 
 def _dav2_conv(sd: Dict[str, torch.Tensor], name: str, leaf: Mapping) -> None:
