@@ -63,6 +63,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      turns with the autograd backward of the library yardstick, the plain
      version, the function's byte bound (g read, the level gradients
      written once) and this implementation's zero + scatter + cast floor;
+ 3b. (after 3) K1's open fault: tests/test_torch_cuda.py::
+     test_kernel_many_rois_per_block's seeds, dtypes and box mixes, 50
+     launches each (300), every launch bit-identical to the first and within
+     tolerance of the plain version; on a mismatch the RoI, its level,
+     persistent block and channel chunk;
+ 3c. compute-sanitizer racecheck on one such K1 launch where the host has
+     the tool (a hazard fails the run);
+ 15. the train CLI at full width (weakcube_tpu_torch/tools/train_net.py:
+     configs/Omni_combined.yaml, 50 synthetic scenes, b25 @ 512 px, bf16,
+     cached ground normals): 6 iterations with a checkpoint at 4, then
+     --resume to 8 from model_recent (iteration 4); K1 and K1-bwd launched
+     twice per step, metrics.json written; steps/s, data and step time per
+     iteration, Cube/IoU3D of step 0;
+ 16. one full-width step on the mapper's batch without cached normals: the
+     RANSAC ground planes on the card against the SVD fit of the same
+     canvases (|cos| > 0.995; the mapper's cached normals reported beside),
+     the fit timed; K1 and K1-bwd checked and timed on that step's pooler
+     inputs;
+ 17. exact IoU3D on 25 x 128 cube pairs, card vs CPU (atol 1e-5), timed;
+ 18. RANSAC on 25 tilted noisy ground clouds with 1000 injected draws, card
+     vs CPU (inlier counts within 0.1%, planes within 1e-5 where the same
+     hypothesis wins, else |cos| > 0.9999), timed;
  14. print the kernels line (K1, K1-bwd, K2) and, last,
      {"ok": true, "device": {...}}.
 
@@ -602,6 +624,39 @@ def k1_backward_checks(dev, fwd_levels, fwd_boxes):
             fwd_levels[0].dtype, fwd_boxes)
 
 
+def with_pooler_calls_kept(step):
+    """Run step() (one training step) with the inputs of its two K1 calls
+    (pyramid and boxes) and two K1-bwd calls (g and boxes) kept. Returns
+    (K1 calls, K1-bwd calls), the box pooler's first in each (the forward
+    meets the box pooler first, the backward the cube pooler; the box pooler
+    has the more RoIs)."""
+    import torch
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    fwd_calls, bwd_calls = [], []
+    fwd, bwd = roi_align_cuda._forward, roi_align_cuda.roi_align_backward
+
+    def keep_fwd(features, boxes, *args):
+        fwd_calls.append(([f.detach().clone() for f in features], boxes.clone(), args))
+        return fwd(features, boxes, *args)
+
+    def keep_bwd(g, boxes, *args):
+        bwd_calls.append((g.detach().clone(), boxes, args))
+        return bwd(g, boxes, *args)
+    keep_bwd.launches = 0  # the wrapper counts on the module's name, which is this now
+    roi_align_cuda._forward, roi_align_cuda.roi_align_backward = keep_fwd, keep_bwd
+    try:
+        step()
+    finally:
+        roi_align_cuda._forward, roi_align_cuda.roi_align_backward = fwd, bwd
+    torch.cuda.synchronize()
+    if len(fwd_calls) != 2 or len(bwd_calls) != 2:
+        fail(f"the kept step made {len(fwd_calls)} K1 and {len(bwd_calls)} K1-bwd calls, "
+             "expected 2 each")
+    fwd_calls.sort(key=lambda c: -c[1].shape[1])
+    bwd_calls.sort(key=lambda c: -c[1].shape[1])
+    return fwd_calls, bwd_calls
+
+
 def train_phases(dev):
     """Phases 11-13: the small training step card vs CPU; the full-width
     weak training step (configs/Omni_combined.yaml, 38 classes, 512 px,
@@ -657,7 +712,9 @@ def train_phases(dev):
         times.append((time.perf_counter() - t) * 1e3)
         all_logs.append(logs)
     k1_launches, bwd_launches = K1.launches, bwd.launches
-    bad = [(i, k) for i, l in enumerate(all_logs) for k, v in l.items() if not np.isfinite(v)]
+    # Cube/IoU3D is computed on step 0 and reads NaN on the other steps
+    bad = [(i, k) for i, l in enumerate(all_logs) for k, v in l.items()
+           if not np.isfinite(v) and (i == 0 or k != "Cube/IoU3D")]
     if bad:
         fail(f"non-finite training logs (step, key): {bad[:8]}")
     if state.applied != n_steps or state.skipped:
@@ -670,6 +727,8 @@ def train_phases(dev):
     print(f"[train] {n_steps} steps: applied {state.applied}, skipped {state.skipped}; every "
           f"loss finite; K1 launches {k1_launches}, K1-bwd launches {bwd_launches} (2 + 2 per "
           f"step); peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    print(f"[train] Cube/IoU3D of step 0 (a metric tick; NaN on the others): "
+          f"{all_logs[0]['Cube/IoU3D']:.6f}")
     print(f"[train] losses of the last step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in all_logs[-1].items()))
     print(f"[timing] train step b{TRAIN_BATCH} @ {TRAIN_SIZE} px bf16: median {ms:.3f} ms over "
@@ -682,30 +741,8 @@ def train_phases(dev):
     # kernels to their plain versions on the step's own inputs and to time
     # K1-bwd on them
     profile_step(lambda: train_step(model, opt, state, batch, gen))
-    fwd_calls, bwd_calls = [], []
-    fwd = roi_align_cuda._forward
-
-    def keep_fwd(features, boxes, *args):
-        fwd_calls.append(([f.detach().clone() for f in features], boxes.clone(), args))
-        return fwd(features, boxes, *args)
-
-    def keep_bwd(g, boxes, *args):
-        bwd_calls.append((g.detach().clone(), boxes, args))
-        return bwd(g, boxes, *args)
-    keep_bwd.launches = 0  # the wrapper counts on the module's name, which is this now
-    roi_align_cuda._forward, roi_align_cuda.roi_align_backward = keep_fwd, keep_bwd
-    try:
-        train_step(model, opt, state, batch, gen)
-    finally:
-        roi_align_cuda._forward, roi_align_cuda.roi_align_backward = fwd, bwd
-    torch.cuda.synchronize()
-    if len(fwd_calls) != 2 or len(bwd_calls) != 2:
-        fail(f"the kept step made {len(fwd_calls)} K1 and {len(bwd_calls)} K1-bwd calls, "
-             "expected 2 each")
-    # the forward meets the box pooler first, the backward the cube pooler;
-    # the box pooler has the more RoIs
-    fwd_calls.sort(key=lambda c: -c[1].shape[1])
-    bwd_calls.sort(key=lambda c: -c[1].shape[1])
+    fwd_calls, bwd_calls = with_pooler_calls_kept(lambda: train_step(model, opt, state, batch,
+                                                                    gen))
 
     # -- 13. K1 and K1-bwd on the step's own inputs ---------------------------
     # bf16 levels: kernel and plain version both sum in float32 and round
@@ -808,6 +845,412 @@ def profile_step(step, top: int = 14):
               f" x{e.count:<5d} {e.key[:110]}")
 
 
+def k1_stress(dev, rounds: int = 50):
+    """Phase 3b: K1's open fault (ROADMAP.md, Queue C: one mismatch in an
+    earlier chip run, never reproduced). tests/test_torch_cuda.py::
+    test_kernel_many_rois_per_block's seeds, dtypes and box mixes (2 x 4000
+    RoIs over 256 px levels, C = 256, more RoIs than the persistent grid
+    holds), `rounds` launches each, every launch held bit for bit to the
+    first and within tolerance to the plain version. On a mismatch: the
+    first mismatching RoI, its level, its persistent block and its channel
+    chunk, then fail. Returns the launch count."""
+    import numpy as np
+    import torch
+    from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from torch_roi_boxes import BOX_SETS, box_set
+
+    K1 = roi_align_cuda.multilevel_roi_align
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 0
+    for seed in (7, 8, 9):
+        for dt in (torch.float32, torch.bfloat16):
+            rng = np.random.default_rng(seed)
+            feats = [torch.from_numpy(rng.normal(size=(2, 256 // s, 256 // s, 256))
+                                      .astype(np.float32)).to(dev, dt) for s in FPN_STRIDES]
+            boxes = np.concatenate([box_set(b, rng, 2, 800, 256) for b in BOX_SETS], 1)
+            boxes = torch.from_numpy(np.ascontiguousarray(
+                boxes[:, rng.permutation(boxes.shape[1])])).to(dev)
+            want = roi_align_cuda.plain(feats, boxes, FPN_STRIDES, 7, 2).float()
+            atol, rtol = (2e-5, 1e-5) if dt == torch.float32 else (1e-2, 1e-2)
+            first = None
+            for i in range(rounds):
+                got = K1(feats, boxes, FPN_STRIDES, 7, 2)
+                n += 1
+                bad = (got.float() - want).abs() > atol + rtol * want.abs()
+                if first is not None:
+                    bad |= got != first
+                else:
+                    first = got
+                if bool(bad.any()):
+                    k1_mismatch_report(feats, boxes, got, want, first, bad, sms, seed, dt, i)
+    return n
+
+
+def k1_mismatch_report(feats, boxes, got, want, first, bad, sms, seed, dt, launch):
+    """Print where K1 first disagrees: the RoI, its level, the persistent
+    block that took it (RoI index mod the grid; the grid is SMs x the blocks
+    that fit an SM by shared memory, an estimate of the kernel's occupancy
+    query) and the channel chunk of the staging plan; then fail."""
+    import torch
+    from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    b, r, i, j, c = [int(x) for x in bad.nonzero()[0]]
+    R, C = boxes.shape[1], feats[0].shape[-1]
+    fp = roi_align_cuda.footprint(feats, boxes, FPN_STRIDES, 7, 2)
+    V = 4 if dt == torch.float32 else 8
+    P, VB = 14, 16
+    stage = max(4 * P * P * V * feats[0].element_size(), 24 * 1024)
+    stage = (stage + 127) // 128 * 128
+    per_sm = min((228 * 1024) // (2 * stage + 1024), 2048 // 128)
+    ny, nx, nvec = int(fp["ny"][b, r]), int(fp["nx"][b, r]), C // V
+    cv = min(nvec, stage // (ny * nx * VB))
+    if cv < min(nvec, 4):
+        cv = min(nvec, 2 * stage // (ny * nx * VB))
+    chunks = -(-nvec // cv)
+    cv = -(-nvec // chunks)
+    roi = b * R + r
+    fail(f"K1 stress (seed {seed}, {str(dt)[6:]}, launch {launch}): {int(bad.sum())} values "
+         f"disagree; first at image {b} RoI {r} (linear {roi}, box "
+         f"{[round(x, 3) for x in boxes[b, r].tolist()]}), bin ({i}, {j}), channel {c}: kernel "
+         f"{got[b, r, i, j, c].item()!r}, first launch {first[b, r, i, j, c].item()!r}, plain "
+         f"{want[b, r, i, j, c].item()!r}; level p{int(fp['levels'][b, r])}, staged {ny} x {nx} "
+         f"lines, channel chunk {(c // V) // cv} of {chunks}; persistent block {roi % (sms * per_sm)}"
+         f" of an estimated grid of {sms} x {per_sm}")
+
+
+def k1_racecheck():
+    """Phase 3c: compute-sanitizer's racecheck on one K1 launch of the
+    stress loop's shape (bf16), in a subprocess, instrumenting K1 alone.
+    Fails on a reported hazard; a sanitizer that is absent, or that does
+    not run K1 at all (an unsupported device), is reported as such.
+    Returns a one-line outcome."""
+    import re
+    import shutil
+    tool = shutil.which("compute-sanitizer") or shutil.which(
+        "compute-sanitizer", path=os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                               "bin"))
+    if tool is None:
+        print("[racecheck] compute-sanitizer is not on this host: K1 racecheck not run")
+        return "not run: compute-sanitizer absent"
+    code = (
+        "import sys, numpy as np, torch\n"
+        f"sys.path[:0] = [{HERE!r}, {os.path.join(HERE, 'tests')!r}]\n"
+        "from weakcube_tpu_torch.ops import roi_align_cuda\n"
+        "from torch_roi_boxes import BOX_SETS, box_set\n"
+        "rng = np.random.default_rng(7)\n"
+        "S = (4, 8, 16, 32, 64)\n"
+        "f = [torch.from_numpy(rng.normal(size=(2, 256 // s, 256 // s, 256)).astype(np.float32))"
+        ".to('cuda', torch.bfloat16) for s in S]\n"
+        "b = np.concatenate([box_set(n, rng, 2, 800, 256) for n in BOX_SETS], 1)\n"
+        "b = torch.from_numpy(np.ascontiguousarray(b[:, rng.permutation(b.shape[1])])).cuda()\n"
+        "roi_align_cuda.multilevel_roi_align(f, b, S, 7, 2)\n"
+        "torch.cuda.synchronize()\n"
+        "print('K1 launches', roi_align_cuda.multilevel_roi_align.launches)\n")
+    cmd = [tool, "--tool", "racecheck", "--racecheck-report", "all",
+           "--kernel-name", "kns=roi_align_kernel", sys.executable, "-c", code]
+    t = time.time()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=HERE)
+    except subprocess.TimeoutExpired:
+        print("[racecheck] compute-sanitizer racecheck did not finish within 300 s: not measured")
+        return "not measured: timed out after 300 s"
+    out = (res.stdout + res.stderr).strip().splitlines()
+    summary = [line for line in out if "SUMMARY" in line or "hazard" in line.lower()
+               or "K1 launches" in line]
+    print(f"[racecheck] compute-sanitizer --tool racecheck on one K1 launch (2 x 4000 RoIs, "
+          f"bf16): rc {res.returncode} in {time.time() - t:.1f} s")
+    for line in (summary or out[-12:]):
+        print(f"  {line}")
+    ran = any(line.strip() == "K1 launches 1" for line in out)
+    if not ran:
+        why = next((line.strip("= ").strip() for line in out if "Error:" in line),
+                   f"exit code {res.returncode}")
+        print(f"[racecheck] the sanitizer did not run K1 ({why}): racecheck not measured")
+        return f"not measured: {why}"
+    hazards = [int(m.group(1)) for line in out
+               for m in [re.search(r"RACECHECK SUMMARY: (\d+) hazard", line)] if m]
+    if not hazards or any(h > 0 for h in hazards) or any("Race reported" in line for line in out):
+        fail("compute-sanitizer racecheck reported a shared-memory hazard in K1 (or no summary)")
+    return "0 hazards"
+
+
+def cli_phases(dev):
+    """Phase 15: the train CLI at full width (configs/Omni_combined.yaml:
+    DLA-34, 38 classes, b25, 512 px, bf16, cached ground normals) on 50
+    synthetic scenes: 6 iterations with a checkpoint at 4, then --resume to
+    8, which must start at 4 (model_recent). Checks K1 and K1-bwd ran twice
+    per step, every loss finite, metrics.json and the checkpoints written.
+    Returns the numbers PERF.md keeps."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.solver import checkpoint
+    from weakcube_tpu_torch.tools import train_net
+
+    K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
+    out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    base = ["--config-file", os.path.join(HERE, "configs", "Omni_combined.yaml"),
+            "--synthetic", "50"]
+    opts = ["SOLVER.CHECKPOINT_PERIOD", "4", "TEST.EVAL_PERIOD", "0", "VIS_PERIOD", "0",
+            "OUTPUT_DIR", out]
+    try:
+        K1.launches = bwd.launches = 0
+        t = time.time()
+        state, hist = train_net.main(base + ["--max-iters", "6"] + opts)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        k1, kb = K1.launches, bwd.launches
+        if state.step != 6 or len(hist) != 6:
+            fail(f"the CLI ran {len(hist)} iterations to step {state.step}, expected 6")
+        if k1 != 12 or kb != 12:
+            fail(f"the CLI launched K1 {k1} and K1-bwd {kb} times in 6 steps, expected 12 each")
+        bad = [(h["iteration"], k) for h in hist for k, v in h["logs"].items()
+               if k != "Cube/IoU3D" and not math.isfinite(v)]
+        if bad:
+            fail(f"non-finite CLI logs (iteration, key): {bad[:8]}")
+        iou0 = hist[0]["logs"]["Cube/IoU3D"]
+        if not math.isfinite(iou0):
+            fail(f"Cube/IoU3D of step 0 is {iou0}")
+        with open(os.path.join(out, "metrics.json")) as f:
+            lines = [json.loads(x) for x in f]
+        if not lines or lines[-1].get("iteration") != 6:
+            fail(f"metrics.json holds {lines[-1:] or 'nothing'}")
+        for name in ("model_recent", "model_final"):
+            if not os.path.exists(os.path.join(out, name + checkpoint.SUFFIX)):
+                fail(f"the CLI wrote no {name}{checkpoint.SUFFIX}")
+        timed = hist[1:]
+        secs = sum(h["data_time"] + h["step_time"] for h in timed)
+        rep = {"steps_per_s": len(timed) / secs, "images_per_s": 25 * len(timed) / secs,
+               "data_ms": [1e3 * h["data_time"] for h in hist],
+               "step_ms": [1e3 * h["step_time"] for h in hist], "iou3d_step0": iou0,
+               "applied": state.applied, "skipped": state.skipped, "wall_s": wall}
+        print(f"[cli] python -m weakcube_tpu_torch.tools.train_net --config-file "
+              f"configs/Omni_combined.yaml --synthetic 50 --max-iters 6 SOLVER.CHECKPOINT_PERIOD "
+              f"4 TEST.EVAL_PERIOD 0 VIS_PERIOD 0: {wall:.1f} s; applied {state.applied}, skipped "
+              f"{state.skipped}; K1 launches {k1}, K1-bwd launches {kb} (2 + 2 per step); "
+              f"Cube/IoU3D of step 0 {iou0:.6f}; metrics.json {len(lines)} line(s)")
+        print("[cli] per iteration (data time / step time, ms): " + ", ".join(
+            f"{h['iteration']}: {1e3 * h['data_time']:.1f} / {1e3 * h['step_time']:.1f}"
+            for h in hist))
+        print(f"[timing] CLI iterations 2-6: {rep['steps_per_s']:.3f} steps/s, "
+              f"{rep['images_per_s']:.1f} images/s at b25 (data time "
+              f"{1e3 * sum(h['data_time'] for h in timed) / len(timed):.1f} ms, step time "
+              f"{1e3 * sum(h['step_time'] for h in timed) / len(timed):.1f} ms per iteration)")
+        state2, hist2 = train_net.main(base + ["--resume", "--max-iters", "8"] + opts)
+        first = hist2[0]
+        if first["iteration"] != 4 or state2.step != 8:
+            fail(f"--resume started at iteration {first['iteration']} and ended at step "
+                 f"{state2.step}, expected 4 (model_recent) and 8")
+        if not math.isfinite(first["logs"]["total_loss"]):
+            fail(f"the resumed run's first loss is {first['logs']['total_loss']}")
+        print(f"[cli] --resume --max-iters 8: started at iteration {first['iteration']} "
+              f"(model_recent), first loss {first['logs']['total_loss']:.4f}, ended at step "
+              f"{state2.step}")
+        # the CLI's data stages alone, on this thread: does the mapper keep up
+        # with the step? (renders memoised as in the CLI; the first batch
+        # renders them)
+        from weakcube_tpu_torch.data.build import build_train_batches, to_device
+        args = train_net.parse_args(base + ["--max-iters", "6"] + opts)
+        cfg = train_net.setup(args)
+        records, loaders, _ = train_net.build_data(cfg, args)
+        batches = build_train_batches(cfg, records, loaders=loaders)
+        next(batches)
+        map_ms, copy_ms = [], []
+        for _ in range(4):
+            t = time.perf_counter()
+            b = next(batches)
+            map_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            to_device(b, dev)
+            torch.cuda.synchronize()
+            copy_ms.append((time.perf_counter() - t) * 1e3)
+        rep["mapper_ms"], rep["copy_ms"] = statistics.median(map_ms), statistics.median(copy_ms)
+        print(f"[timing] the CLI's data stages alone, one thread: mapper + pad_batch "
+              f"{rep['mapper_ms']:.1f} ms per b25 batch (median of 4: "
+              f"{' '.join(f'{x:.1f}' for x in map_ms)}), pinned copy to the card "
+              f"{rep['copy_ms']:.1f} ms (median of 4: {' '.join(f'{x:.1f}' for x in copy_ms)}); "
+              f"the step {1e3 * sum(h['step_time'] for h in timed) / len(timed):.1f} ms")
+        return rep
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def ground_phase(dev):
+    """Phase 16: one full-width training step on a batch of the port's
+    mapper with TPU.CACHE_GROUND_NORMALS False, so that pose_ground fits the
+    ground planes by RANSAC on the card (ground_normals_from_maps: 25
+    images, 1000 hypotheses, every 5th pixel); its normals held to the SVD
+    fit of the same canvases (|cos| > 0.995 where the ground mask is valid)
+    and compared with the mapper's cached normals; the fit timed (CUDA events, median of 5); K1 and
+    K1-bwd held to their plain versions on this step's pooler inputs and
+    timed on them. Returns the numbers PERF.md keeps."""
+    import numpy as np
+    import torch
+    from weakcube_tpu_torch.data import synthetic
+    from weakcube_tpu_torch.data.build import build_train_batches, to_device
+    from weakcube_tpu_torch.entry import flagship_cfg
+    from weakcube_tpu_torch.models import roi_heads
+    from weakcube_tpu_torch.models.priors import compute_priors
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.ops.plane import ground_normal_np
+    from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
+
+    records = synthetic.make_dataset(50, seed=0)
+    loaders = {"image": lambda r: synthetic.render_image(r["_scene"]),
+               "depth": lambda r: synthetic.render_depth(r["_scene"]),
+               "ground": lambda r: synthetic.ground_mask(r["_scene"])}
+    cfgs = {}
+    for cache in (True, False):
+        c = flagship_cfg(512).clone()
+        c.defrost()
+        c.TPU.CACHE_GROUND_NORMALS = cache
+        c.freeze()
+        cfgs[cache] = c
+    cached = next(build_train_batches(cfgs[True], records, loaders=loaders))
+    batch = next(build_train_batches(cfgs[False], records, loaders=loaders))
+    if "ground_normal" in batch or not np.array_equal(batch["image"], cached["image"]):
+        fail("the mapper's batches with and without the normal cache differ")
+    batch = to_device(batch, dev)
+    cfg = cfgs[False]
+    model = build_model(cfg, compute_priors(cfg, records, cfg.MODEL.ROI_HEADS.NUM_CLASSES),
+                        device=dev, seed=0)
+    state, opt = create_train_state(cfg, model)
+    fit, seen, out = roi_heads.ground_normals_from_maps, {}, {}
+    K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
+
+    def spy(generator, *a, **k):
+        seen.update(args=a, kwargs=k, out=fit(generator, *a, **k))
+        return seen["out"]
+
+    def step():
+        out["state"], out["logs"] = train_step(model, opt, state, batch,
+                                               torch.Generator(device=dev).manual_seed(0))
+    roi_heads.ground_normals_from_maps = spy
+    try:
+        calls = with_pooler_calls_kept(step)
+    finally:
+        roi_heads.ground_normals_from_maps = fit
+    state, logs = out["state"], out["logs"]
+    torch.cuda.synchronize()
+    if "out" not in seen:
+        fail("the step without cached normals did not fit the ground plane")
+    if not all(np.isfinite(v) for k, v in logs.items()) or state.applied != 1:
+        fail(f"the in-graph ground-plane step: applied {state.applied}, logs {logs}")
+    kw = seen["kwargs"]
+    print(f"[ground] one b25 @ 512 px step without cached normals: pose_ground fit "
+          f"{seen['args'][0].shape[0]} ground planes on the card ({kw['num_hypotheses']} "
+          f"hypotheses, every {kw['use_nth']}th pixel); Cube/loss_normal_vec "
+          f"{logs['Cube/loss_normal_vec']:.5f}, total {logs['total_loss']:.4f}")
+    # the in-graph fit backprojects the canvas with its principal point at
+    # the canvas centre (the JAX package's convention); the mapper's cached
+    # SVD normal fits the original map. On a canvas padded below the content
+    # the two differ by the padding's offset, so the gate holds the RANSAC to
+    # the same SVD fit on the canvas it sees, and the cached normals (and the
+    # SVD fit on the content alone) are reported beside it
+    normals = seen["out"].double().cpu().numpy()
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    ok = cached["ground_normal_valid"] & cached["ground_valid"]
+    svd, svd_content = np.zeros_like(normals), np.zeros_like(normals)
+    for b in range(len(normals)):
+        w, h = (int(x) for x in cached["image_wh"][b])
+        depth, mask, K = (cached["depth_map"][b].astype(np.float32), cached["ground_mask"][b],
+                          cached["K"][b])
+        svd[b], ok_b = ground_normal_np(depth, K, mask)
+        svd_content[b], _ = ground_normal_np(depth[:h, :w], K, mask[:h, :w])
+        ok[b] &= ok_b
+
+    def cos(a, b):
+        return np.abs((a * b).sum(-1)) / np.linalg.norm(b, axis=-1)
+    c_same, c_cached = cos(normals, svd), cos(normals, cached["ground_normal"].astype(np.float64))
+    c_content = cos(svd_content, cached["ground_normal"].astype(np.float64))
+    if not ok.any() or (c_same[ok] <= 0.995).any():
+        fail(f"in-graph RANSAC normals vs the SVD fit of the same canvases: |cos| "
+             f"{c_same.round(5).tolist()} (valid {ok.tolist()}), bound 0.995")
+    print(f"  on {int(ok.sum())} images with a valid ground mask, |cos| of the RANSAC normals to "
+          f"the SVD fit (ops/plane.py::ground_normal_np) of the same canvases: min "
+          f"{c_same[ok].min():.6f}, median {np.median(c_same[ok]):.6f} (bound > 0.995); to the "
+          f"mapper's cached SVD normals of the original maps: min {c_cached[ok].min():.6f}, "
+          f"median {np.median(c_cached[ok]):.6f} (the canvas centre is "
+          f"{512 / 2 - float(cached['K'][0, 1, 2]):.1f} px below the principal point); the SVD "
+          f"fit of the canvas's content alone to the cached normals: min "
+          f"{c_content[ok].min():.6f}")
+    rounds = []
+    for _ in range(5):
+        rounds.append(timed_ms(lambda: fit(torch.Generator(device=dev).manual_seed(1),
+                                           *seen["args"], **kw), 1, warmup=1))
+    fit_ms = statistics.median(rounds)
+    print(f"[timing] ground_normals_from_maps b25: {fit_ms:.3f} ms per step (CUDA events, median "
+          f"of 5: {' '.join(f'{x:.3f}' for x in rounds)})")
+
+    # K1 and K1-bwd on this step's own pooler inputs: checked and timed
+    rep = {"ransac_ms": fit_ms, "min_cos": float(c_same[ok].min()), "k1_ms": 0.0, "k1_bound_ms": 0.0,
+           "bwd_ms": 0.0, "bwd_bound_ms": 0.0}
+    for name, (levels, boxes, args), (g, gboxes, bargs) in zip(
+            ("box pooler", "cube pooler"), *calls):
+        strides, out_size, sr, min_level = args
+        want = roi_align_cuda.plain(levels, boxes, strides, out_size, sr, min_level)
+        rtol, atol = (1e-2, 1e-3) if levels[0].dtype == torch.bfloat16 else (1e-5, 2e-5)
+        check_close(f"K1 {name} R={boxes.shape[1]} on the mapper's batch",
+                    K1(levels, boxes, strides, out_size, sr, min_level), want,
+                    atol * want.float().abs().max().item(), rtol)
+        shapes, dt = bargs[0], bargs[1]
+        gw = roi_align_cuda.plain_backward(g, gboxes, shapes, [dt] * len(shapes), *bargs[2:])
+        scale = max(w.float().abs().max().item() for w in gw)
+        check_grads(f"K1-bwd {name} R={gboxes.shape[1]} on the mapper's batch",
+                    bwd(g, gboxes, *bargs), gw, atol * scale, rtol)
+        k1_ms = kernel_device_ms(lambda: K1(levels, boxes, strides, out_size, sr, min_level), 20)
+        k1_bound = roi_align_bound(levels, boxes, strides, out_size, sr)["touched"][0]
+        bwd_ms = kernel_device_ms(lambda: bwd(g, gboxes, *bargs), 20)
+        bwd_bound = roi_align_bwd_bound(shapes, dt, gboxes, strides, out_size, sr)[0]
+        for k, x in (("k1_ms", k1_ms), ("k1_bound_ms", k1_bound), ("bwd_ms", bwd_ms),
+                     ("bwd_bound_ms", bwd_bound)):
+            rep[k] += x
+        print(f"[timing] on the mapper's batch, {name} R={boxes.shape[1]}: K1 {k1_ms:.4f} ms of "
+              f"device time (bound {k1_bound:.4f} ms over the touched pixels), K1-bwd "
+              f"{bwd_ms:.4f} ms (bound {bwd_bound:.4f} ms)")
+    print(f"[timing] per CLI step (box + cube pooler): K1 {rep['k1_ms']:.4f} ms (bound "
+          f"{rep['k1_bound_ms']:.4f}), K1-bwd {rep['bwd_ms']:.4f} ms (bound "
+          f"{rep['bwd_bound_ms']:.4f})")
+    return rep
+
+
+def geometry_phases(dev):
+    """Phases 17-18: exact IoU3D on 25 x 128 pairs and RANSAC on 25 tilted,
+    noisy ground clouds with 1000 injected draws, each on the card against
+    the CPU (tests/torch_geometry_check.py) and timed on the card (CUDA
+    events, median of 5). Returns the numbers PERF.md keeps."""
+    from weakcube_tpu_torch.ops import iou3d, plane
+    from torch_geometry_check import iou3d_card_vs_cpu, ransac_card_vs_cpu
+    try:
+        iou = iou3d_card_vs_cpu(dev, 25 * 128)
+        ran = ransac_card_vs_cpu(dev, 25, 480, 640, 1000)
+    except AssertionError as e:
+        fail(str(e))
+    c1, c2 = iou.pop("inputs")
+    iou_rounds = [timed_ms(lambda: iou3d.matched_iou3d(c1, c2), 1, warmup=1) for _ in range(5)]
+    pts, valid, draws = ran.pop("inputs")
+    ran_rounds = [timed_ms(lambda: plane.ransac_plane(pts, valid, 0.05, 1000, draws=draws), 1,
+                          warmup=1) for _ in range(5)]
+    iou["ms"], ran["ms"] = statistics.median(iou_rounds), statistics.median(ran_rounds)
+    print(f"[iou3d] matched_iou3d on {iou['pairs']} pairs (identical, contained, touching, "
+          f"disjoint, overlapping), card vs CPU float32: max |err| {iou['max_abs_err']:.3e} "
+          f"(atol 1e-5); {iou['identical_below_1']} of {iou['identical']} identical pairs read "
+          f"below 1 on both (coplanar faces, ROADMAP.md Queue C); {iou['ms']:.3f} ms on the card "
+          f"(median of 5: "
+          f"{' '.join(f'{x:.3f}' for x in iou_rounds)})")
+    print(f"[ransac] ransac_plane on {ran['images']} clouds of {ran['points']} points, 1000 "
+          f"injected draws, card vs CPU: the same winner on {ran['same_winner']} images (planes "
+          f"within {ran['worst_same_err']:.3e}), |cos| >= {ran['worst_cos_other']:.7f} on the "
+          f"others; inlier counts within {ran['max_count_diff']} points (bound 0.1% of the valid "
+          f"points); |cos| to the true plane >= {ran['min_cos_to_truth']:.6f}; {ran['ms']:.3f} ms "
+          f"on the card (median of 5: {' '.join(f'{x:.3f}' for x in ran_rounds)})")
+    return {"iou3d_ms": iou["ms"], "iou3d_err": iou["max_abs_err"], "ransac_ms": ran["ms"]}
+
+
 def main() -> None:
     try:
         import torch
@@ -876,6 +1319,19 @@ def main() -> None:
             # by at most one bf16 step of the value
             tol = (2e-5, 1e-5) if dt == torch.float32 else (1e-2, 1e-2)
             max_err[(dt, R)] = check_close(f"{str(dt)[6:]} R={R}", got, want, *tol)
+
+    print(f"[phase] 3 (K1 vs plain) ended at {time.time() - t_start:.1f} s")
+
+    # -- 3b-3c. K1's open fault: a stress loop and racecheck ----------------
+    t = time.time()
+    n_stress = k1_stress(dev)
+    print(f"[stress] K1 on tests/test_torch_cuda.py::test_kernel_many_rois_per_block's inputs "
+          f"(seeds 7, 8, 9; float32 and bfloat16; 2 x 4000 RoIs of every box set): {n_stress} "
+          f"launches, each bit-identical to the first of its input and within tolerance of the "
+          f"plain version, in {time.time() - t:.1f} s")
+    t = time.time()
+    racecheck = k1_racecheck()
+    print(f"[phase] 3b-3c (K1 stress, racecheck: {racecheck}) took {time.time() - t:.1f} s")
 
     # -- 4. the flagship forward, full width ------------------------------
     cfg = flagship_cfg(512)
@@ -1045,7 +1501,18 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 11.-13. the training step ---------------------------------------------
+    t = time.time()
     k1_bwd, max_err["train"] = train_phases(dev)
+    print(f"[phase] 11-13 (training step) took {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 15.-18. the train CLI, the in-graph ground plane, IoU3D, RANSAC ---------
+    for name, phase in (("15 (train CLI)", cli_phases), ("16 (in-graph ground plane)", ground_phase),
+                        ("17-18 (IoU3D and RANSAC, card vs CPU)", geometry_phases)):
+        t = time.time()
+        phase(dev)
+        torch.cuda.empty_cache()
+        print(f"[phase] {name} took {time.time() - t:.1f} s")
     print(f"[done] total run {time.time() - t_start:.1f} s")
 
     # -- 14. result lines ---------------------------------------------------

@@ -309,3 +309,20 @@ def test_small_depth_model_card_matches_cpu(card):
     assert flash_attention_cuda.flash_attention.launches == before + 12
     assert float(d_cpu.std()) > 1e-3
     torch.testing.assert_close(d_gpu.cpu(), d_cpu, atol=1e-3, rtol=0)
+
+
+def test_ransac_card_vs_cpu(card):
+    """ransac_plane on 3 tilted, noisy ground clouds with 300 injected draws
+    on the card against the CPU (tests/torch_geometry_check.py: inlier
+    counts within 0.1% of the valid points, planes within 1e-5 where the
+    same hypothesis wins, else |cos| > 0.9999)."""
+    from torch_geometry_check import ransac_card_vs_cpu
+    rep = ransac_card_vs_cpu(card, 3, 480, 640, 300, seed=1)
+    assert rep["min_cos_to_truth"] > 0.999
+
+
+def test_iou3d_card_vs_cpu(card):
+    """matched_iou3d on 200 identical, contained, touching, disjoint and
+    overlapping pairs on the card against the CPU (float32, atol 1e-5)."""
+    from torch_geometry_check import iou3d_card_vs_cpu
+    iou3d_card_vs_cpu(card, 200, seed=1)

@@ -29,10 +29,12 @@ running statistics, momentum and schedule the first left. The optimizer
 alone (momentum, weight decay, the bias/norm groups, the schedule) is also
 held to optax's by replaying the same two gradients through both.
 test_torch_train_f32.py holds the float32 and bfloat16 steps at 128 px.
-Cube/IoU3D is not ported and not compared.
+Cube/IoU3D is compared on the first step; the port's train step computes it
+every 200th step only and reports NaN on the second.
 """
 
 import copy
+import math
 
 import jax
 import jax.numpy as jnp
@@ -97,10 +99,20 @@ def jax_steps(dtype, steps, rois=None, grads=True, size=SIZE):
         total = jnp.sum(jnp.stack(list(losses.values())))
         return total, (losses, metrics, mut["batch_stats"], captured[-1])
 
+    metric = j_roi_heads.iou3d_train_metric
+
+    def metric_in(dt):
+        """JAX's Cube/IoU3D on GT cubes cast to the compute type: its
+        polytope clip refuses float32 GT corners beside float64 ones."""
+        def fn(dec, gt, *a, **k):
+            return metric(dec, gt._replace(boxes3D=gt.boxes3D.astype(dt),
+                                           poses=gt.poses.astype(dt)), *a, **k)
+        return fn
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_roi_heads, "label_and_sample_proposals", capture)
-        if dtype == jnp.float64:  # its polytope clipping does not trace in float64
-            mp.setattr(j_roi_heads, "iou3d_train_metric", lambda *a, **k: jnp.float32(jnp.nan))
+        if dtype == jnp.float64:
+            mp.setattr(j_roi_heads, "iou3d_train_metric", metric_in(dtype))
         shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch,
                                                 train=True, rng=jax.random.PRNGKey(1)))
         v = random_variables(shapes, seed=1)
@@ -206,14 +218,17 @@ def check(got, want, rtol, msg, exact=None, near=None):
 
 
 def logs_of(run):
-    out = {**run["losses"], **run["metrics"]}
-    out.pop("Cube/IoU3D")
-    return out
+    return {**run["losses"], **run["metrics"]}
 
 
-def check_logs(j, t, near=None):
+def check_logs(j, t, near=None, tick=True):
+    """Every loss and metric to 1e-5 of its scale. tick=False: a step on
+    which the port skips Cube/IoU3D (it reads NaN there)."""
     want, logs = logs_of(j), t["logs"]
     assert set(want) == set(logs) - {"total_loss", "diverging", "grad_finite"}
+    if not tick:
+        assert math.isnan(logs["Cube/IoU3D"])
+        want.pop("Cube/IoU3D")
     for k, w in want.items():
         check(np.float64(logs[k]), w, 1e-5, k, near=None if near is None else near["logs"][k])
     assert logs["diverging"] == 0.0 and logs["grad_finite"] == 1.0
@@ -239,6 +254,7 @@ def check_state(j, t, near=None):
 
 def test_losses_and_metrics_f64(runs):
     check_logs(runs["j64"], runs["t64"])
+    assert runs["t64"]["logs"]["Cube/IoU3D"] > 0  # some fg cube overlaps its GT
 
 
 def test_gradients_f64(runs):
@@ -260,7 +276,7 @@ def test_second_step_f64(runs):
     between the port's second step from its own parameters and from JAX's
     (test_second_step_from_jax_parameters_f64 holds the latter to 1e-5)."""
     j, tj = runs["j64_2"], runs["t64_2j"]
-    check_logs(j, runs["t64_2"], near=tj)
+    check_logs(j, runs["t64_2"], near=tj, tick=False)
     check_gradients(j, runs["t64_2"], near=tj)
     check_state(j, runs["t64_2"], near=tj)
     # the update moved the parameters between the steps
@@ -275,7 +291,7 @@ def test_second_step_from_jax_parameters_f64(runs):
     the momentum, schedule and running statistics the port carried: its
     losses, gradients and the state after its update, to 1e-5 as the first
     step."""
-    check_logs(runs["j64_2"], runs["t64_2j"])
+    check_logs(runs["j64_2"], runs["t64_2j"], tick=False)
     check_gradients(runs["j64_2"], runs["t64_2j"])
     check_state(runs["j64_2"], runs["t64_2j"])
 
@@ -344,3 +360,42 @@ def test_param_labels_match_jax(runs):
             got[f"{mname}.{pname}"] = param_label(module, pname)
     assert got == want
     assert set(got.values()) == set(GROUPS)
+
+
+def test_in_graph_ground_plane_equals_handed_normals():
+    """Without batch["ground_normal"] the weak forward fits each image's
+    ground plane by RANSAC (ground_normals_from_maps), drawing from the
+    step's generator after the RoI sampler. Handing the forward the normals
+    that ground_normals_from_maps returns from the same generator state
+    gives the same Cube/loss_normal_vec (and every other loss), exactly."""
+    cfg = tiny_cfg(SIZE_F64, NCLS, dla=True)
+    tm = t_build_model(cfg, dims_priors(NCLS), device="cpu", seed=2).train()
+    batch = tiny_batch(B, SIZE_F64, SIZE_F64, device="cpu")
+    for k in ("ground_normal", "ground_normal_valid"):
+        batch.pop(k)
+    fit, seen = t_roi_heads.ground_normals_from_maps, {}
+
+    def spy(generator, *a, **k):
+        seen.update(state=generator.get_state(), args=a, kwargs=k)
+        return fit(generator, *a, **k)
+
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_roi_heads, "ground_normals_from_maps", spy)
+        fitted, _ = tm(batch, torch.Generator().manual_seed(3))
+    assert seen["kwargs"]["num_hypotheses"] == cfg.TPU.RANSAC_HYPOTHESES
+    assert seen["kwargs"]["use_nth"] == cfg.TPU.RANSAC_USE_NTH
+    again = torch.Generator()
+    again.set_state(seen["state"])
+    normals = fit(again, *seen["args"], **seen["kwargs"])
+    assert torch.allclose(torch.linalg.vector_norm(normals, dim=-1), torch.ones(B))
+    with torch.no_grad():
+        handed, _ = tm(dict(batch, ground_normal=normals,
+                            ground_normal_valid=batch["ground_valid"]),
+                       torch.Generator().manual_seed(3))
+        other, _ = tm(dict(batch, ground_normal=torch.roll(normals, 1, -1),
+                           ground_normal_valid=batch["ground_valid"]),
+                      torch.Generator().manual_seed(3))
+    assert set(fitted) == set(handed)
+    for k in fitted:
+        assert torch.equal(fitted[k], handed[k]), k
+    assert not torch.equal(fitted["Cube/loss_normal_vec"], other["Cube/loss_normal_vec"])

@@ -13,20 +13,25 @@ multi-level ROIAlignV2 as a CUDA kernel (csrc/roi_align.cu); its weak
 training step (parallel/train_step.py), with the ROIAlign feature gradient
 as a second CUDA kernel in the same source; and the depth pseudo-GT
 generator (Depth Anything V2, data/generate_depth_maps.py), with its
-attention as a CUDA flash-attention kernel (csrc/flash_attention.cu).
+attention as a CUDA flash-attention kernel (csrc/flash_attention.cu); and the
+training CLI on a dataset (tools/train_net.py: the data pipeline, the RANSAC
+ground plane, the exact IoU3D metric, checkpoints and logs).
 
 Package layout:
   config/     YAML config system (a copy of the JAX package's)
   ops/        box, NMS, rotation, cuboid, pooling, ROIAlign and attention
-              ops, losses and samplers; the CUDA wrappers
+              ops, RANSAC planes, exact IoU3D, losses and samplers; the
+              CUDA wrappers
               (ops/roi_align_cuda.py, ops/flash_attention_cuda.py) and their
               nvcc build (cuda_build.py)
   models/     DLA + FPN backbone, RPN, box and cube heads, meta-archs
-  solver/     SGD with detectron2's parameter groups, WarmupMultiStep
+  solver/     SGD with detectron2's parameter groups, WarmupMultiStep;
+              checkpoints
   parallel/   the stabilised training step (one device)
-  data/       synthetic scenes, the Omni3D dataset layer, the depth
-              pseudo-GT model (pseudo_gt/) and CLI
-  utils/      flax -> torch parameter conversion
+  data/       synthetic scenes, the Omni3D dataset layer, the mapper and
+              batch builders, the depth pseudo-GT model (pseudo_gt/) and CLI
+  tools/      the training CLI
+  utils/      flax -> torch parameter conversion, event writers, helpers
   csrc/       CUDA sources, built with nvcc at first use
 """
 

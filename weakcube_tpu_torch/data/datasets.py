@@ -1,11 +1,12 @@
 """Omni3D dataset layer: COCO-style JSON loading, filtering, registration
-(a copy of weakcube_tpu/data/datasets.py, as far as the depth pseudo-GT CLI
-uses it).
+(a copy of weakcube_tpu/data/datasets.py).
 
   * is_ignore and the 2D-box source priority of the reference's datasets.py;
   * load_omni3d_json, incl. attaching depth_image_path / ground_image_path
     when the npz artefacts exist;
   * simple_register / DATASET_CATALOG;
+  * Omni3D (multi-json concat + filtering) and
+    register_and_store_model_metadata (category_meta.json);
   * read_image (synthetic:// fixtures, else Pillow, imported only for real
     files) and load_npz_map.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -179,6 +180,44 @@ def simple_register(dataset_name: str, filter_settings: Dict,
         json_path, "datasets", dataset_name, filter_settings, filter_empty)
     METADATA_CATALOG.setdefault(dataset_name, {}).update(
         json_file=json_path, image_root="datasets", evaluator_type="coco")
+
+
+def register_and_store_model_metadata(datasets, output_dir: str,
+                                      filter_settings: Optional[Dict] = None):
+    """Fix the model's category universe + contiguous id map and persist it
+    (datasets.py:303-336 writes category_meta.json)."""
+    names = filter_settings.get("category_names") if filter_settings else None
+    if not names:
+        names = sorted({c for d in datasets for c in d.get("category_names", [])})
+    thing_classes = list(names)
+    id_map = {i: i for i in range(len(thing_classes))}
+    METADATA_CATALOG.setdefault("omni3d_model", {}).update(
+        thing_classes=thing_classes,
+        thing_dataset_id_to_contiguous_id=id_map)
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, "category_meta.json"), "w") as f:
+        json.dump({"thing_classes": thing_classes,
+                   "thing_dataset_id_to_contiguous_id": id_map}, f)
+    return thing_classes
+
+
+class Omni3D:
+    """Multi-json dataset concat + filtering (datasets.py:141-301)."""
+
+    def __init__(self, dataset_paths: Sequence[str], filter_settings: Dict):
+        self.records: List[Dict] = []
+        self.categories: Dict[int, str] = {}
+        for p in dataset_paths:
+            with open(p) as f:
+                coco = json.load(f)
+            for c in coco.get("categories", []):
+                self.categories[c["id"]] = c["name"]
+            name = os.path.splitext(os.path.basename(p))[0]
+            self.records.extend(load_omni3d_json(
+                p, "datasets", name, filter_settings))
+
+    def __len__(self):
+        return len(self.records)
 
 
 def read_image(file_name: str, record: Optional[Dict] = None) -> np.ndarray:

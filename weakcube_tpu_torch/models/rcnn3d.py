@@ -8,7 +8,8 @@ The model is a function of a padded batch dict: "image" (B, H, W, 3) uint8
 GroundTruth), optionally "rpn_labels" (precomputed RPNLabels), and for the
 weak heads "depth_map" (B, H, W) float16 or float32, "ground_mask" (B, H, W)
 bool, "ground_valid" (B,), "ground_normal" (B, 3) and "ground_normal_valid"
-(B,); it returns (losses, metrics). Module names follow the reference's
+(B,), and "metrics_tick" (a bool: whether to compute the costly metrics;
+absent, they are computed); it returns (losses, metrics). Module names follow the reference's
 detectron2 state dict (backbone.*, proposal_generator.rpn_head.*,
 roi_heads.*).
 """
@@ -134,7 +135,7 @@ class RCNN3D(nn.Module):
         rpn_losses, proposals = self._rpn_train(feats, batch, generator)
         losses, metrics = self.roi_heads.forward_train(
             feats, proposals, batch["gt"], batch["K"], batch["image_wh"], generator,
-            **self._roi_extra(batch))
+            metrics_tick=batch.get("metrics_tick"), **self._roi_extra(batch))
         losses.update(rpn_losses)
         return losses, metrics
 

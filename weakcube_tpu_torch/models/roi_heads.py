@@ -12,8 +12,11 @@ GT boxes are matched and subsampled to S slots per image
 R-CNN losses; the cube branch runs on the fg-capable prefix of the slots
 and takes the weak losses of cfg.loss_functions, uncertainty-weighted.
 The pooler is differentiable in the features (K1 forward, K1-bwd backward
-on the card). Losses not ported yet ('z', 'z_pseudo_gt_patch', 'depth',
-'segmentation'), the in-graph RANSAC ground plane and supervised
+on the card). Without cached ground normals, pose_ground fits each image's
+ground plane by RANSAC on the batch's depth and ground maps
+(`ground_normals_from_maps`). `Cube/IoU3D` is the exact matched 3D IoU of
+the fg RoIs' cubes, computed on metric ticks only. Losses not ported yet
+('z', 'z_pseudo_gt_patch', 'depth', 'segmentation') and supervised
 `ROIHeads3D` training raise NotImplementedError (see ROADMAP.md).
 """
 from __future__ import annotations
@@ -27,7 +30,9 @@ import torch.nn as nn
 
 from ..ops import boxes as box_ops
 from ..ops import cuboids
+from ..ops import iou3d
 from ..ops import losses as loss_ops
+from ..ops import plane as plane_ops
 from ..ops import roi_align_cuda
 from ..ops import rotations
 from ..ops import sampling
@@ -99,6 +104,27 @@ def fg_prefix_rois(rois: SampledRois, positive_fraction: float) -> SampledRois:
     if cap >= S:
         return rois
     return SampledRois(*(x[:, :cap] for x in rois))
+
+
+@torch.no_grad()
+def iou3d_train_metric(dec: "CubeDecode", gt: GroundTruth, rois: SampledRois, K, fg,
+                       tick: Optional[bool] = None) -> torch.Tensor:
+    """The exact matched IoU3D between the GT cubes and the decoded cubes at
+    the sampled fg RoIs, averaged over fg (no gradient). `tick` False skips
+    the computation and the metric reads NaN (the train step ticks every
+    200 steps); None computes it."""
+    if tick is not None and not tick:
+        return torch.full((), float("nan"), device=fg.device)
+    g3d = gather_gt(gt.boxes3D, rois.gt_idx)
+    gposes = gather_gt(gt.poses, rois.gt_idx)
+    gt_ctr = cuboids.backproject(g3d[..., 0:2], g3d[..., 2], K[:, None])
+    gt_corners = cuboids.get_cuboid_verts_3d(torch.cat([gt_ctr, g3d[..., 3:6]], -1), gposes)
+    pred_corners = dec.cubes.corners()
+    dt = torch.promote_types(pred_corners.dtype, torch.float32)  # float64 stays
+    B, S = fg.shape
+    iou = iou3d.matched_iou3d(gt_corners.reshape(B * S, 8, 3).to(dt),
+                              pred_corners.reshape(B * S, 8, 3).to(dt)).reshape(B, S)
+    return loss_ops.masked_mean(iou, fg)
 
 
 class CubeDecode(NamedTuple):
@@ -241,6 +267,33 @@ def pose_ground_loss(pose, normals):
     den = torch.linalg.norm(pred_up, dim=-1) * torch.linalg.norm(n, dim=-1)
     cos = (pred_up * n).sum(-1) / torch.maximum(den, torch.full_like(den, 1e-8))
     return 1.0 - torch.abs(cos)
+
+
+def ground_normals_from_maps(generator: Optional[torch.Generator], depth_maps, ground_masks,
+                             ground_valid=None, use_nth: int = 5, K=None,
+                             num_hypotheses: int = 1000, draws=None) -> torch.Tensor:
+    """Per-image up vectors from the depth point clouds by RANSAC, all images
+    in one pass: (B, H, W) depth and bool ground masks (all True where an
+    image has no ground map), K (B, 3, 3) -> (B, 3) unit normals with the
+    wall-flip fixes. The point cloud is rebuilt on the map subsampled by
+    `use_nth`, with the focal lengths floor-divided by it and the principal
+    point at the subsampled centre. draws (B, H, 3): injected hypothesis
+    draws (default: drawn from `generator`). ground_valid is the caller's
+    (it weights the loss)."""
+    B = depth_maps.shape[0]
+    z = depth_maps[:, ::use_nth, ::use_nth]
+    m = ground_masks[:, ::use_nth, ::use_nth]
+    h, w = z.shape[1], z.shape[2]
+    u = torch.arange(w, dtype=z.dtype, device=z.device)[None, None, :]
+    v = torch.arange(h, dtype=z.dtype, device=z.device)[None, :, None]
+    fx = torch.floor_divide(K[:, 0, 0], use_nth).to(z.dtype)[:, None, None]
+    fy = torch.floor_divide(K[:, 1, 1], use_nth).to(z.dtype)[:, None, None]
+    x = (u - w / 2.0) * z / fx.clamp(min=1e-6)
+    y = (v - h / 2.0) * z / fy.clamp(min=1e-6)
+    pts = torch.stack([x, y, z], -1).reshape(B, h * w, 3)
+    eq, _ = plane_ops.ransac_plane(pts, m.reshape(B, h * w), 0.05, num_hypotheses,
+                                   generator, draws)
+    return plane_ops.wall_flip(eq[..., :3])
 
 
 def normal_to_rotation(normals):
@@ -420,8 +473,10 @@ class ROIHeads3DScore(ROIHeadsCommon):
     def forward_train(self, features, proposals: Proposals, gt: GroundTruth, K, image_wh,
                       generator: torch.Generator, depth_maps=None, ground_masks=None,
                       ground_valid=None, ground_normals=None, ground_normal_valid=None,
-                      instance_masks=None):
-        """-> (losses, metrics), two dicts of scalar tensors."""
+                      instance_masks=None, metrics_tick=None):
+        """-> (losses, metrics), two dicts of scalar tensors. The RANSAC of
+        pose_ground (without ground_normals) draws from `generator` after the
+        RoI sampler."""
         cfg = self.cfg
         rc = cfg.MODEL.ROI_CUBE_HEAD
         loss_fns = list(cfg.loss_functions)
@@ -459,13 +514,20 @@ class ROIHeads3DScore(ROIHeadsCommon):
             weights["Cube/loss_pose"] = rc.LOSS_W_POSE
         if ("pose_ground" in loss_fns or "pose_ground2" in loss_fns) \
                 and (depth_maps is not None or ground_normals is not None):
-            if ground_normals is None:
-                raise NotImplementedError(
-                    "pose_ground without batch['ground_normal'] fits the ground plane by "
-                    "RANSAC (ops/plane.py), which is not ported to PyTorch yet (ROADMAP.md)")
-            normals = ground_normals.detach()
-            gv = ground_normal_valid if ground_normal_valid is not None else \
-                torch.ones(normals.shape[0], dtype=torch.bool, device=normals.device)
+            if ground_normals is not None:
+                # the data pipeline's per-image fit (TPU.CACHE_GROUND_NORMALS)
+                normals = ground_normals
+                gv = ground_normal_valid if ground_normal_valid is not None else \
+                    torch.ones(normals.shape[0], dtype=torch.bool, device=normals.device)
+            else:
+                gm = ground_masks if ground_masks is not None else \
+                    torch.ones(depth_maps.shape, dtype=torch.bool, device=depth_maps.device)
+                gv = ground_valid if ground_valid is not None else \
+                    torch.ones(depth_maps.shape[0], dtype=torch.bool, device=depth_maps.device)
+                normals = ground_normals_from_maps(
+                    generator, depth_maps, gm, gv, use_nth=cfg.TPU.RANSAC_USE_NTH, K=K,
+                    num_hypotheses=cfg.TPU.RANSAC_HYPOTHESES)
+            normals = normals.detach()
             conf = torch.where(gv, 1.0, 0.1)[:, None]
             if "pose_ground" in loss_fns:
                 per_box["Cube/loss_normal_vec"] = pose_ground_loss(dec.pose, normals) * conf
@@ -483,10 +545,10 @@ class ROIHeads3DScore(ROIHeadsCommon):
                 weights[f"Cube/loss_dims_{ax}"] = rc.LOSS_W_DIMS
         losses.update(uncert_weight_and_reduce(per_box, scalar, dec.uncert, fg,
                                                rc.USE_CONFIDENCE, weights, rc.LOSS_W_3D))
-        # Cube/IoU3D (exact 3D IoU, ops/iou3d.py) is not ported: left out
         metrics = {
             "Cube/2D_IoU": loss_ops.masked_mean(
                 box_ops.elementwise_iou(gt_boxes_m, proj_boxes), fg),
+            "Cube/IoU3D": iou3d_train_metric(dec, gt, rois, K, fg, tick=metrics_tick),
             "roi_head/num_fg_samples": all_fg.sum() / B,
             "roi_head/num_bg_samples": num_bg,
         }

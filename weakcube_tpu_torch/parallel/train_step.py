@@ -3,6 +3,8 @@
 
 `train_step(model, optimizer, state, batch, generator)`:
   * forward in training mode, `total` = the sum of the loss dict, backward;
+    the costly metrics (Cube/IoU3D) are computed every 200th step and read
+    NaN on the others;
   * divergence: `total` non-finite or above EXPLOSION_FACTOR times the
     rolling mean of the recorded loss (GAMMA smoothing); the recorded loss
     is clipped to [0, 1] when diverging (1 when non-finite);
@@ -28,6 +30,7 @@ from ..solver import build_optimizer
 
 GAMMA = 0.02            # rolling-mean smoothing
 EXPLOSION_FACTOR = 4.0  # loss > 4x the rolling mean -> diverging
+METRICS_PERIOD = 200    # steps between two computations of the costly metrics
 
 
 @dataclasses.dataclass
@@ -55,7 +58,8 @@ def train_step(model: nn.Module, optimizer, state: TrainState, batch: dict,
     params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:
         p.grad = None
-    losses, metrics = model(batch, generator)
+    losses, metrics = model(dict(batch, metrics_tick=state.step % METRICS_PERIOD == 0),
+                            generator)
     total = torch.stack([v.float() for v in losses.values()]).sum()
     total.backward()
     grads = [p.grad for p in params if p.grad is not None]

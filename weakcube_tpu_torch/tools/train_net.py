@@ -1,0 +1,270 @@
+"""Training entry point (tools/train_net.py of the JAX package), on one
+device.
+
+    python -m weakcube_tpu_torch.tools.train_net --config-file configs/Omni_combined.yaml \
+        [--resume] [--max-iters N] [--synthetic N] [--device cpu] [--profile] \
+        OPT1 VAL1 OPT2 VAL2 ...
+
+Runs on the card unless `--device cpu` is given. Trains on the registered
+datasets of cfg.DATASETS.TRAIN, or on N procedurally rendered scenes
+(`--synthetic N`), with the stabilised train step; logs every 20
+iterations (console and OUTPUT_DIR/metrics.json), keeps one rolling
+checkpoint (model_recent, every SOLVER.CHECKPOINT_PERIOD steps) and
+model_final, and restarts from model_recent when the share of skipped
+updates reaches MODEL.STABILIZE (checked every CHECKPOINT_PERIOD // 2
+iterations, up to MAX_TRAINING_ATTEMPTS). Each step draws from a generator
+seeded from SEED and the iteration, so a resumed run draws what an
+uninterrupted one would.
+
+Evaluation and visualisation are not ported yet: --eval-only,
+TEST.EVAL_PERIOD > 0 and VIS_PERIOD > 0 raise (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import math
+import os
+import time
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("weakcube_tpu_torch")
+
+# metrics the train step computes every METRICS_PERIOD steps and reports as
+# NaN on the others: the logs carry their last finite value
+TICK_GATED_METRICS = ("Cube/IoU3D",)
+MAX_TRAINING_ATTEMPTS = 10  # reference train_net.py:62
+LOG_PERIOD = 20
+NOT_PORTED_HINT = ("evaluation and visualisation are not ported to PyTorch yet (ROADMAP.md, "
+                   "Queue A items 5 and 6)")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--config-file", required=True)
+    p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--max-iters", type=int, default=None,
+                   help="override SOLVER.MAX_ITER")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N procedurally generated scenes instead of "
+                        "the registered datasets")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of iterations 10-20 to "
+                        "OUTPUT_DIR/profile")
+    p.add_argument("--device", default=None,
+                   help="torch device to train on (default: cuda; 'cpu' for the CPU)")
+    p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
+    return p.parse_args(argv)
+
+
+def seed_of(cfg) -> int:
+    return 12 if cfg.SEED < 0 else cfg.SEED  # the reference's SEED
+
+
+def setup(args):
+    from ..config import get_cfg
+    cfg = get_cfg()
+    cfg.merge_from_file(args.config_file)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    if args.max_iters:
+        cfg.SOLVER.MAX_ITER = args.max_iters
+    if args.eval_only:
+        raise NotImplementedError(f"--eval-only: {NOT_PORTED_HINT}")
+    for key, value in (("TEST.EVAL_PERIOD", cfg.TEST.EVAL_PERIOD), ("VIS_PERIOD", cfg.VIS_PERIOD)):
+        if value > 0:
+            raise NotImplementedError(
+                f"{key} = {value}: {NOT_PORTED_HINT}; pass the opts "
+                "`TEST.EVAL_PERIOD 0 VIS_PERIOD 0` to train without them")
+    cfg.freeze()
+    np.random.seed(seed_of(cfg))
+    return cfg
+
+
+def build_data(cfg, args):
+    """Return (records, loaders, num_classes)."""
+    from ..data import datasets as ds
+    if args.synthetic:
+        from ..data import synthetic
+        records = synthetic.make_dataset(args.synthetic, seed=0)
+        by_id = {r["image_id"]: r for r in records}
+
+        # the scene set is small and fixed: render each scene once
+        @lru_cache(maxsize=4096)
+        def _img(i):
+            return synthetic.render_image(by_id[i]["_scene"])
+
+        @lru_cache(maxsize=4096)
+        def _depth(i):
+            return synthetic.render_depth(by_id[i]["_scene"])
+
+        @lru_cache(maxsize=4096)
+        def _ground(i):
+            return synthetic.ground_mask(by_id[i]["_scene"])
+
+        loaders = {
+            "image": lambda r: _img(r["image_id"]),
+            "depth": lambda r: _depth(r["image_id"]),
+            "ground": lambda r: _ground(r["image_id"]),
+        }
+        return records, loaders, len(synthetic.CATEGORIES)
+
+    fs = ds.get_filter_settings_from_cfg(cfg)
+    records = []
+    for name in cfg.DATASETS.TRAIN:
+        if name not in ds.DATASET_CATALOG:
+            ds.simple_register(name, fs)
+        records.extend(ds.DATASET_CATALOG[name]())
+    loaders = {}
+    if any("depth_image_path" in r for r in records):
+        loaders["depth"] = lambda r: ds.load_npz_map(r["depth_image_path"]) \
+            if "depth_image_path" in r else None
+        loaders["ground"] = lambda r: ds.load_npz_map(r["ground_image_path"]) \
+            if "ground_image_path" in r else None
+    return records, loaders, cfg.MODEL.ROI_HEADS.NUM_CLASSES
+
+
+def step_generator(seed: int, it: int, device) -> torch.Generator:
+    """The generator of iteration `it`: seeded from (seed, it) alone."""
+    s = int(np.random.SeedSequence([seed, it]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def do_train(cfg, args, records, loaders, num_classes):
+    """Train from cfg (and args.resume / args.profile / args.device).
+    Returns (state, history): the final TrainState and one dict per
+    iteration (iteration, attempt, data_time and step_time in seconds, and
+    the step's logs)."""
+    from ..data.build import build_train_batches, prefetch, to_device
+    from ..models.priors import compute_priors
+    from ..models.rcnn3d import build_model, resolve_device
+    from ..parallel.train_step import create_train_state, train_step
+    from ..solver.checkpoint import (PeriodicCheckpointerOnlyOne, load_model_weights,
+                                     load_weights_pretrain)
+    from ..utils.events import EventStorage, default_writers
+    from ..utils.util import ETA
+
+    dev = resolve_device(args.device)
+    seed = seed_of(cfg)
+    # priors for every class of the model (a dataset may name fewer)
+    priors = compute_priors(cfg, records, max(num_classes, cfg.MODEL.ROI_HEADS.NUM_CLASSES))
+    model = build_model(cfg, priors, device=dev, seed=seed)
+    state, opt = create_train_state(cfg, model)
+    if cfg.MODEL.WEIGHTS_PRETRAIN:
+        load_weights_pretrain(cfg.MODEL.WEIGHTS_PRETRAIN, model)
+        logger.info("warm-started weights from %s", cfg.MODEL.WEIGHTS_PRETRAIN)
+    elif cfg.MODEL.WEIGHTS:
+        load_model_weights(cfg.MODEL.WEIGHTS, model)
+        logger.info("initialised weights from MODEL.WEIGHTS=%s", cfg.MODEL.WEIGHTS)
+    ckpt = PeriodicCheckpointerOnlyOne(cfg.OUTPUT_DIR, cfg.SOLVER.CHECKPOINT_PERIOD)
+    state = ckpt.resume_or_load(model, opt, state, resume=args.resume)
+    start_iter = state.step
+    logger.info("model on %s; %s at step %d", dev,
+                "resumed" if args.resume and start_iter else "starting", start_iter)
+
+    # two pipeline stages: the mapper, and the copy of each batch to the
+    # device, both ahead of the step
+    batches = prefetch(build_train_batches(cfg, records, loaders=loaders))
+    dev_batches = prefetch(to_device(b, dev) for b in batches)
+
+    max_iter = cfg.SOLVER.MAX_ITER
+    storage = EventStorage(start_iter)
+    writers = default_writers(cfg.OUTPUT_DIR, use_wandb=bool(cfg.log))
+    eta = ETA(max_iter - start_iter)
+    attempt, it = 1, start_iter
+    history, last_finite = [], {}
+    data_time = step_time = 0.0
+    t0, n_logged = time.time(), 0
+    prof = None
+    while it < max_iter:
+        if args.profile and it == start_iter + 10:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU] + (
+                [torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+            prof.__enter__()
+        t_d = time.perf_counter()
+        batch = next(dev_batches)
+        dt_data = time.perf_counter() - t_d
+        t_s = time.perf_counter()
+        state, logs = train_step(model, opt, state, batch, step_generator(seed, it, dev))
+        dt_step = time.perf_counter() - t_s  # the step ends in a host sync
+        data_time += dt_data
+        step_time += dt_step
+        history.append(dict(iteration=it, attempt=attempt, data_time=dt_data,
+                            step_time=dt_step, logs=logs))
+        it += 1
+        storage.step()
+        if prof is not None and it == start_iter + 20:
+            prof.__exit__(None, None, None)
+            path = os.path.join(cfg.OUTPUT_DIR, "profile", "trace.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            prof.export_chrome_trace(path)
+            prof = None
+            logger.info("profiler trace written to %s", path)
+        for k in TICK_GATED_METRICS:
+            v = logs.get(k)
+            if v is not None and not math.isnan(v):
+                last_finite[k] = v
+        n_logged += 1
+        if it % LOG_PERIOD == 0 or it == max_iter:
+            host_logs = dict(logs)
+            # only the tick-gated metrics carry their last finite value: a
+            # NaN in a loss signals divergence and stays visible
+            for k in TICK_GATED_METRICS:
+                if k in host_logs and math.isnan(host_logs[k]):
+                    if k in last_finite:
+                        host_logs[k] = last_finite[k]
+                    else:
+                        del host_logs[k]
+            storage.put_scalars(**host_logs, data_time=data_time / n_logged,
+                                step_time=step_time / n_logged)
+            for w in writers:
+                w.write(storage)
+            remaining = eta.tick(n_logged)
+            logger.info("iter %d/%d  loss %.4f  (%.3fs/it: data %.4f, step %.4f; eta %dm)  %s",
+                        it, max_iter, host_logs.get("total_loss", float("nan")),
+                        (time.time() - t0) / n_logged, data_time / n_logged,
+                        step_time / n_logged, int(remaining // 60),
+                        " ".join(f"{k}={v:.3f}" for k, v in sorted(host_logs.items())
+                                 if k.startswith(("rpn", "BoxHead", "Cube"))))
+            data_time = step_time = 0.0
+            t0, n_logged = time.time(), 0
+        ckpt.step(it - 1, model, opt, state)
+
+        # restart from the last checkpoint when too many updates exploded
+        # (reference train_net.py:270-302)
+        if it % max(cfg.SOLVER.CHECKPOINT_PERIOD // 2, 1) == 0:
+            frac = state.skipped / max(state.skipped + state.applied, 1)
+            if frac >= cfg.MODEL.STABILIZE and attempt < MAX_TRAINING_ATTEMPTS:
+                attempt += 1
+                logger.warning("exploded fraction %.3f >= STABILIZE; restarting from the last "
+                               "checkpoint (attempt %d)", frac, attempt)
+                state = ckpt.resume_or_load(model, opt, state, resume=True)
+                state = dataclasses.replace(state, skipped=0, applied=0)
+
+    dev_batches.close()  # stops the copy stage; the mapper stage stops with it
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    ckpt.finalize(model, opt, state)
+    for w in writers:
+        w.close()
+    logger.info("training done: %d iters, %d skipped updates", state.step, state.skipped)
+    return state, history
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    args = parse_args(argv)
+    cfg = setup(args)
+    records, loaders, num_classes = build_data(cfg, args)
+    logger.info("dataset: %d records", len(records))
+    return do_train(cfg, args, records, loaders, num_classes)
+
+
+if __name__ == "__main__":
+    main()
