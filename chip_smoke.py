@@ -5,7 +5,8 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. print the card's name and power limit (nvidia-smi);
   2. build the ROIAlign (K1 and K1-bwd, one source) and flash-attention (K2)
-     CUDA kernels from weakcube_tpu_torch/csrc, one nvcc each, in parallel;
+     CUDA kernels from weakcube_tpu_torch/csrc, one nvcc each, and the
+     evaluator's greedy matcher (host C++, g++), in parallel;
   3. hold K1 against its plain PyTorch version at the main path's shapes
      (b8, levels 128^2..8^2 x 256, R = 1000 and 100), with edge-case boxes
      (past the borders, sub-pixel, elongated, hugging a border, empty,
@@ -85,6 +86,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  18. RANSAC on 25 tilted noisy ground clouds with 1000 injected draws, card
      vs CPU (inlier counts within 0.1%, planes within 1e-5 where the same
      hypothesis wins, else |cos| > 0.9999), timed;
+ 19. the eval CLI at full width (tools/eval_net.py --synthetic 64
+     --eval-only) on phase 15's checkpoint: 38 classes, 512 px, bf16, two
+     batches of 32; every scene counted once, K1 launched twice per batch;
+     the APs, images/s end to end and at steady state, the data /
+     inference / records ms per batch, the evaluator's seconds, peak memory;
+ 20. K1 at an eval batch's shapes (b32, R = 1000 and 100, from phase 15's
+     checkpoint): held to its plain version, its device time beside its
+     touched-pixel bound, the plain version and the library yardstick;
+ 21. phase 19's records through the evaluator with IoU3D on the card and on
+     the CPU: the same AP within 1e-9, seconds per image on each;
+ 22. the demo (tools/demo.py) on four rendered PNGs, four JPEGs; the train
+     CLI resumed for two iterations with TEST.EVAL_PERIOD and VIS_PERIOD:
+     one evaluation of the live model, the two vis JPEGs;
  14. print the kernels line (K1, K1-bwd, K2) and, last,
      {"ok": true, "device": {...}}.
 
@@ -975,107 +989,101 @@ def k1_racecheck():
     return "0 hazards"
 
 
-def cli_phases(dev):
+def cli_phases(dev, out):
     """Phase 15: the train CLI at full width (configs/Omni_combined.yaml:
     DLA-34, 38 classes, b25, 512 px, bf16, cached ground normals) on 50
-    synthetic scenes: 6 iterations with a checkpoint at 4, then --resume to
-    8, which must start at 4 (model_recent). Checks K1 and K1-bwd ran twice
-    per step, every loss finite, metrics.json and the checkpoints written.
-    Returns the numbers PERF.md keeps."""
+    synthetic scenes into OUTPUT_DIR `out`: 6 iterations with a checkpoint
+    at 4, then --resume to 8, which must start at 4 (model_recent). Checks
+    K1 and K1-bwd ran twice per step, every loss finite, metrics.json and
+    the checkpoints written. Returns the numbers PERF.md keeps."""
     import math
-    import shutil
-    import tempfile
     import torch
     from weakcube_tpu_torch.ops import roi_align_cuda
     from weakcube_tpu_torch.solver import checkpoint
     from weakcube_tpu_torch.tools import train_net
 
     K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
-    out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     base = ["--config-file", os.path.join(HERE, "configs", "Omni_combined.yaml"),
             "--synthetic", "50"]
     opts = ["SOLVER.CHECKPOINT_PERIOD", "4", "TEST.EVAL_PERIOD", "0", "VIS_PERIOD", "0",
             "OUTPUT_DIR", out]
-    try:
-        K1.launches = bwd.launches = 0
-        t = time.time()
-        state, hist = train_net.main(base + ["--max-iters", "6"] + opts)
+    K1.launches = bwd.launches = 0
+    t = time.time()
+    state, hist = train_net.main(base + ["--max-iters", "6"] + opts)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    k1, kb = K1.launches, bwd.launches
+    if state.step != 6 or len(hist) != 6:
+        fail(f"the CLI ran {len(hist)} iterations to step {state.step}, expected 6")
+    if k1 != 12 or kb != 12:
+        fail(f"the CLI launched K1 {k1} and K1-bwd {kb} times in 6 steps, expected 12 each")
+    bad = [(h["iteration"], k) for h in hist for k, v in h["logs"].items()
+           if k != "Cube/IoU3D" and not math.isfinite(v)]
+    if bad:
+        fail(f"non-finite CLI logs (iteration, key): {bad[:8]}")
+    iou0 = hist[0]["logs"]["Cube/IoU3D"]
+    if not math.isfinite(iou0):
+        fail(f"Cube/IoU3D of step 0 is {iou0}")
+    with open(os.path.join(out, "metrics.json")) as f:
+        lines = [json.loads(x) for x in f]
+    if not lines or lines[-1].get("iteration") != 6:
+        fail(f"metrics.json holds {lines[-1:] or 'nothing'}")
+    for name in ("model_recent", "model_final"):
+        if not os.path.exists(os.path.join(out, name + checkpoint.SUFFIX)):
+            fail(f"the CLI wrote no {name}{checkpoint.SUFFIX}")
+    timed = hist[1:]
+    secs = sum(h["data_time"] + h["step_time"] for h in timed)
+    rep = {"steps_per_s": len(timed) / secs, "images_per_s": 25 * len(timed) / secs,
+           "data_ms": [1e3 * h["data_time"] for h in hist],
+           "step_ms": [1e3 * h["step_time"] for h in hist], "iou3d_step0": iou0,
+           "applied": state.applied, "skipped": state.skipped, "wall_s": wall}
+    print(f"[cli] python -m weakcube_tpu_torch.tools.train_net --config-file "
+          f"configs/Omni_combined.yaml --synthetic 50 --max-iters 6 SOLVER.CHECKPOINT_PERIOD "
+          f"4 TEST.EVAL_PERIOD 0 VIS_PERIOD 0: {wall:.1f} s; applied {state.applied}, skipped "
+          f"{state.skipped}; K1 launches {k1}, K1-bwd launches {kb} (2 + 2 per step); "
+          f"Cube/IoU3D of step 0 {iou0:.6f}; metrics.json {len(lines)} line(s)")
+    print("[cli] per iteration (data time / step time, ms): " + ", ".join(
+        f"{h['iteration']}: {1e3 * h['data_time']:.1f} / {1e3 * h['step_time']:.1f}"
+        for h in hist))
+    print(f"[timing] CLI iterations 2-6: {rep['steps_per_s']:.3f} steps/s, "
+          f"{rep['images_per_s']:.1f} images/s at b25 (data time "
+          f"{1e3 * sum(h['data_time'] for h in timed) / len(timed):.1f} ms, step time "
+          f"{1e3 * sum(h['step_time'] for h in timed) / len(timed):.1f} ms per iteration)")
+    state2, hist2 = train_net.main(base + ["--resume", "--max-iters", "8"] + opts)
+    first = hist2[0]
+    if first["iteration"] != 4 or state2.step != 8:
+        fail(f"--resume started at iteration {first['iteration']} and ended at step "
+             f"{state2.step}, expected 4 (model_recent) and 8")
+    if not math.isfinite(first["logs"]["total_loss"]):
+        fail(f"the resumed run's first loss is {first['logs']['total_loss']}")
+    print(f"[cli] --resume --max-iters 8: started at iteration {first['iteration']} "
+          f"(model_recent), first loss {first['logs']['total_loss']:.4f}, ended at step "
+          f"{state2.step}")
+    # the CLI's data stages alone, on this thread: does the mapper keep up
+    # with the step? (renders memoised as in the CLI; the first batch
+    # renders them)
+    from weakcube_tpu_torch.data.build import build_train_batches, to_device
+    args = train_net.parse_args(base + ["--max-iters", "6"] + opts)
+    cfg = train_net.setup(args)
+    records, loaders, _ = train_net.build_data(cfg, args)
+    batches = build_train_batches(cfg, records, loaders=loaders)
+    next(batches)
+    map_ms, copy_ms = [], []
+    for _ in range(4):
+        t = time.perf_counter()
+        b = next(batches)
+        map_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        to_device(b, dev)
         torch.cuda.synchronize()
-        wall = time.time() - t
-        k1, kb = K1.launches, bwd.launches
-        if state.step != 6 or len(hist) != 6:
-            fail(f"the CLI ran {len(hist)} iterations to step {state.step}, expected 6")
-        if k1 != 12 or kb != 12:
-            fail(f"the CLI launched K1 {k1} and K1-bwd {kb} times in 6 steps, expected 12 each")
-        bad = [(h["iteration"], k) for h in hist for k, v in h["logs"].items()
-               if k != "Cube/IoU3D" and not math.isfinite(v)]
-        if bad:
-            fail(f"non-finite CLI logs (iteration, key): {bad[:8]}")
-        iou0 = hist[0]["logs"]["Cube/IoU3D"]
-        if not math.isfinite(iou0):
-            fail(f"Cube/IoU3D of step 0 is {iou0}")
-        with open(os.path.join(out, "metrics.json")) as f:
-            lines = [json.loads(x) for x in f]
-        if not lines or lines[-1].get("iteration") != 6:
-            fail(f"metrics.json holds {lines[-1:] or 'nothing'}")
-        for name in ("model_recent", "model_final"):
-            if not os.path.exists(os.path.join(out, name + checkpoint.SUFFIX)):
-                fail(f"the CLI wrote no {name}{checkpoint.SUFFIX}")
-        timed = hist[1:]
-        secs = sum(h["data_time"] + h["step_time"] for h in timed)
-        rep = {"steps_per_s": len(timed) / secs, "images_per_s": 25 * len(timed) / secs,
-               "data_ms": [1e3 * h["data_time"] for h in hist],
-               "step_ms": [1e3 * h["step_time"] for h in hist], "iou3d_step0": iou0,
-               "applied": state.applied, "skipped": state.skipped, "wall_s": wall}
-        print(f"[cli] python -m weakcube_tpu_torch.tools.train_net --config-file "
-              f"configs/Omni_combined.yaml --synthetic 50 --max-iters 6 SOLVER.CHECKPOINT_PERIOD "
-              f"4 TEST.EVAL_PERIOD 0 VIS_PERIOD 0: {wall:.1f} s; applied {state.applied}, skipped "
-              f"{state.skipped}; K1 launches {k1}, K1-bwd launches {kb} (2 + 2 per step); "
-              f"Cube/IoU3D of step 0 {iou0:.6f}; metrics.json {len(lines)} line(s)")
-        print("[cli] per iteration (data time / step time, ms): " + ", ".join(
-            f"{h['iteration']}: {1e3 * h['data_time']:.1f} / {1e3 * h['step_time']:.1f}"
-            for h in hist))
-        print(f"[timing] CLI iterations 2-6: {rep['steps_per_s']:.3f} steps/s, "
-              f"{rep['images_per_s']:.1f} images/s at b25 (data time "
-              f"{1e3 * sum(h['data_time'] for h in timed) / len(timed):.1f} ms, step time "
-              f"{1e3 * sum(h['step_time'] for h in timed) / len(timed):.1f} ms per iteration)")
-        state2, hist2 = train_net.main(base + ["--resume", "--max-iters", "8"] + opts)
-        first = hist2[0]
-        if first["iteration"] != 4 or state2.step != 8:
-            fail(f"--resume started at iteration {first['iteration']} and ended at step "
-                 f"{state2.step}, expected 4 (model_recent) and 8")
-        if not math.isfinite(first["logs"]["total_loss"]):
-            fail(f"the resumed run's first loss is {first['logs']['total_loss']}")
-        print(f"[cli] --resume --max-iters 8: started at iteration {first['iteration']} "
-              f"(model_recent), first loss {first['logs']['total_loss']:.4f}, ended at step "
-              f"{state2.step}")
-        # the CLI's data stages alone, on this thread: does the mapper keep up
-        # with the step? (renders memoised as in the CLI; the first batch
-        # renders them)
-        from weakcube_tpu_torch.data.build import build_train_batches, to_device
-        args = train_net.parse_args(base + ["--max-iters", "6"] + opts)
-        cfg = train_net.setup(args)
-        records, loaders, _ = train_net.build_data(cfg, args)
-        batches = build_train_batches(cfg, records, loaders=loaders)
-        next(batches)
-        map_ms, copy_ms = [], []
-        for _ in range(4):
-            t = time.perf_counter()
-            b = next(batches)
-            map_ms.append((time.perf_counter() - t) * 1e3)
-            t = time.perf_counter()
-            to_device(b, dev)
-            torch.cuda.synchronize()
-            copy_ms.append((time.perf_counter() - t) * 1e3)
-        rep["mapper_ms"], rep["copy_ms"] = statistics.median(map_ms), statistics.median(copy_ms)
-        print(f"[timing] the CLI's data stages alone, one thread: mapper + pad_batch "
-              f"{rep['mapper_ms']:.1f} ms per b25 batch (median of 4: "
-              f"{' '.join(f'{x:.1f}' for x in map_ms)}), pinned copy to the card "
-              f"{rep['copy_ms']:.1f} ms (median of 4: {' '.join(f'{x:.1f}' for x in copy_ms)}); "
-              f"the step {1e3 * sum(h['step_time'] for h in timed) / len(timed):.1f} ms")
-        return rep
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+        copy_ms.append((time.perf_counter() - t) * 1e3)
+    rep["mapper_ms"], rep["copy_ms"] = statistics.median(map_ms), statistics.median(copy_ms)
+    print(f"[timing] the CLI's data stages alone, one thread: mapper + pad_batch "
+          f"{rep['mapper_ms']:.1f} ms per b25 batch (median of 4: "
+          f"{' '.join(f'{x:.1f}' for x in map_ms)}), pinned copy to the card "
+          f"{rep['copy_ms']:.1f} ms (median of 4: {' '.join(f'{x:.1f}' for x in copy_ms)}); "
+          f"the step {1e3 * sum(h['step_time'] for h in timed) / len(timed):.1f} ms")
+    return rep
 
 
 def ground_phase(dev):
@@ -1251,6 +1259,325 @@ def geometry_phases(dev):
     return {"iou3d_ms": iou["ms"], "iou3d_err": iou["max_abs_err"], "ransac_ms": ran["ms"]}
 
 
+EVAL_SCENES, EVAL_BATCH = 64, 32
+
+
+def kept_records(cls):
+    """Patch cls.add (an evaluator's) to keep every (dt, gt) record pair it
+    is given; returns (the list, a function that undoes the patch)."""
+    kept, add = [], cls.add
+
+    def keep(self, dt, gt):
+        kept.append((dt, gt))
+        return add(self, dt, gt)
+    cls.add = keep
+    return kept, lambda: setattr(cls, "add", add)
+
+
+def eval_phase(dev, out):
+    """Phase 19: the eval CLI at full width (python -m
+    weakcube_tpu_torch.tools.eval_net --config-file configs/Omni_combined.yaml
+    --synthetic 64 --eval-only, in process) on phase 15's OUTPUT_DIR, so that
+    it evaluates the checkpoint the train CLI wrote: 38 classes, 512 px, bf16,
+    two batches of 32. Checks every scene counted once, K1 launched twice per
+    batch, AP2D and AP3D finite. Returns the numbers PERF.md keeps and the
+    evaluator's record pairs (for phase 21)."""
+    import math
+    import torch
+    from weakcube_tpu_torch.evaluation import omni3d_eval
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.tools import eval_net
+
+    K1 = roi_align_cuda.multilevel_roi_align
+    argv = ["--config-file", os.path.join(HERE, "configs", "Omni_combined.yaml"),
+            "--synthetic", str(EVAL_SCENES), "--eval-only", "OUTPUT_DIR", out]
+    torch.cuda.reset_peak_memory_stats()
+    kept, undo = kept_records(omni3d_eval.Omni3DEvaluator)
+    try:
+        K1.launches = 0
+        t = time.time()
+        res = eval_net.main(argv)
+        wall = time.time() - t
+        launches = K1.launches
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tm = res["timing"]
+    if tm["images"] != EVAL_SCENES or len(kept) != EVAL_SCENES:
+        fail(f"the eval CLI counted {tm['images']} images ({len(kept)} records), expected "
+             f"{EVAL_SCENES}")
+    if tm["batches"] != EVAL_SCENES // EVAL_BATCH or launches != 2 * tm["batches"]:
+        fail(f"the eval CLI ran {tm['batches']} batches with {launches} K1 launches, expected "
+             f"{EVAL_SCENES // EVAL_BATCH} and 2 per batch")
+    if not all(math.isfinite(res[k]) for k in ("AP2D", "AP3D")):
+        fail(f"AP2D {res['AP2D']}, AP3D {res['AP3D']}")
+    n_det = sum(len(d["scores"]) for d, _ in kept)
+    n_gt = sum(len(g["classes"]) for _, g in kept)
+    print(f"[eval] python -m weakcube_tpu_torch.tools.eval_net --config-file "
+          f"configs/Omni_combined.yaml --synthetic {EVAL_SCENES} --eval-only (phase 15's "
+          f"model_final.pt, 38 classes, 512 px, bf16, b{tm['batch_size']}): {wall:.1f} s; "
+          f"{tm['images']} images counted of {EVAL_SCENES} scenes, {tm['batches']} batches, K1 "
+          f"launches {launches} (2 per batch); {n_det} detections, {n_gt} GT")
+    print("[eval] AP2D {:.4f} AP3D {:.4f} AP3D@15 {:.4f} AP3D@25 {:.4f} AP3D@50 {:.4f} AP_near "
+          "{:.4f} AP_medium {:.4f} AP_far {:.4f}".format(
+              *(res.get(k, float("nan")) for k in ("AP2D", "AP3D", "AP3D@15", "AP3D@25",
+                                                   "AP3D@50", "AP_near", "AP_medium", "AP_far"))))
+    print(f"[timing] eval CLI: {tm['images_per_s']:.2f} images/s end to end (inference loop "
+          f"{tm['seconds']:.3f} s), {tm['steady_images_per_s']:.2f} images/s at steady state "
+          f"(median of {tm['steady_batches']} batch(es) after the first: {tm['batch_ms']:.1f} ms "
+          f"per b{tm['batch_size']} batch = data {tm['data_ms']:.1f} + inference "
+          f"{tm['inference_ms']:.1f} + records {tm['records_ms']:.1f} ms; first batch "
+          f"{' '.join(f'{x:.1f}' for x in tm['first_batch_ms'])} ms); evaluator "
+          f"{tm['evaluator_s']:.3f} s after the loop ({1e3 * tm['evaluator_s'] / tm['batches']:.1f} "
+          f"ms per batch, {tm['evaluator_ms_per_image']:.2f} ms per image, IoU3D on the card); "
+          f"peak memory {peak:.2f} GiB")
+    rep = dict(tm, wall_s=wall, launches=launches, peak_gib=peak,
+               **{k: res.get(k, float("nan")) for k in ("AP2D", "AP3D", "AP3D@15", "AP3D@25",
+                                                        "AP3D@50", "AP_near", "AP_medium",
+                                                        "AP_far")})
+    return rep, kept
+
+
+def eval_k1_phase(dev, out):
+    """Phase 20: K1 at an eval batch's shapes: one b32 batch of phase 19's
+    records through phase 15's checkpoint with its two K1 calls (box pooler,
+    R = POST_NMS_TOPK_TEST 1000; cube pooler, R = DETECTIONS_PER_IMAGE 100)
+    kept; K1 held to its plain version on them (in chunks of 8 images),
+    timed by kernel_device_ms beside its touched-pixel bound, the plain
+    version and the library yardstick (F.grid_sample + mean). Returns K1's
+    eval-batch numbers."""
+    import torch
+    from weakcube_tpu_torch.data.build import build_test_batches, to_device
+    from weakcube_tpu_torch.models.priors import compute_priors
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.tools import eval_net, train_net
+
+    args = train_net.parse_args(["--config-file", os.path.join(HERE, "configs",
+                                                               "Omni_combined.yaml"),
+                                 "--synthetic", str(EVAL_SCENES), "--eval-only", "OUTPUT_DIR", out])
+    cfg = train_net.setup(args)
+    records, loaders, ncls = train_net.build_data(cfg, args, "test")
+    model = build_model(cfg, compute_priors(cfg, records, max(ncls, cfg.MODEL.ROI_HEADS.NUM_CLASSES)),
+                        device=dev)
+    eval_net.restore_weights(cfg, model)
+    batch = next(build_test_batches(cfg, records, EVAL_BATCH, loaders))
+    model_batch = to_device({k: batch[k] for k in ("image", "image_wh", "K")}, dev)
+    K1, fwd, calls = roi_align_cuda.multilevel_roi_align, roi_align_cuda._forward, []
+
+    def keep(features, boxes, *a):
+        calls.append(([f.clone() for f in features], boxes.clone(), a))
+        return fwd(features, boxes, *a)
+    roi_align_cuda._forward = keep
+    try:
+        with torch.no_grad():
+            model(model_batch)
+    finally:
+        roi_align_cuda._forward = fwd
+    del model
+    torch.cuda.synchronize()
+    if len(calls) != 2:
+        fail(f"one eval batch made {len(calls)} K1 calls, expected 2")
+    calls.sort(key=lambda c: -c[1].shape[1])
+    rep = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+    for name, (levels, boxes, (strides, out_size, sr, min_level)) in zip(
+            ("box pooler", "cube pooler"), calls):
+        got = K1(levels, boxes, strides, out_size, sr, min_level)
+        torch.cuda.synchronize()
+        plain_ms, err = 0.0, 0.0
+        for i in range(0, boxes.shape[0], 8):   # the plain version's gathers, 8 images at a time
+            lv = [f[i:i + 8] for f in levels]
+            t = time.perf_counter()
+            want = roi_align_cuda.plain(lv, boxes[i:i + 8], strides, out_size, sr, min_level)
+            torch.cuda.synchronize()
+            plain_ms += (time.perf_counter() - t) * 1e3
+            err = max(err, check_close(f"K1 {name} images {i}-{i + 7} of the eval batch",
+                                       got[i:i + 8], want, 1e-2, 1e-2))
+            del want
+        del got
+        ms = kernel_device_ms(lambda: K1(levels, boxes, strides, out_size, sr, min_level), 20)
+        bd = roi_align_bound(levels, boxes, strides, out_size, sr)
+        lib = library_roi_align(levels, boxes, strides, out_size, sr)
+        lib_ms = statistics.median(timed_ms(lib, 1, warmup=1) for _ in range(3))
+        del lib
+        torch.cuda.empty_cache()
+        for k, x in (("ms", ms), ("bound_ms", bd["touched"][0]), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms)):
+            rep[k] += x
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        rep["bound_by"] = rep.get("bound_by") or bd["touched"][1]
+        print(f"[timing] K1 on the eval batch, {name} b{boxes.shape[0]} R={boxes.shape[1]} "
+              f"({levels[0].dtype}, levels {[tuple(f.shape[1:3]) for f in levels]}): {ms:.4f} ms "
+              f"of device time per launch; bound {bd['touched'][0]:.4f} ms by "
+              f"{bd['touched'][1]} over the touched pixels ({100 * bd['touched'][0] / ms:.1f}% of "
+              f"it), {bd['whole'][0]:.4f} ms over the whole pyramid; plain {plain_ms:.3f} ms (4 "
+              f"calls of 8 images); library {lib_ms:.3f} ms (median of 3)")
+    print(f"[timing] K1 per eval batch (box + cube pooler, b{EVAL_BATCH}): {rep['ms']:.4f} ms, "
+          f"bound {rep['bound_ms']:.4f} ms, plain {rep['plain_ms']:.3f} ms, library "
+          f"{rep['library_ms']:.3f} ms")
+    return rep
+
+
+def gt_from_detections(kept):
+    """Record pairs whose GT is each image's three best detections, moved
+    by a few pixels and centimetres and grown by 4% (as
+    tests/test_torch_eval_e2e.py makes them): the detections of a barely
+    trained model match nothing of the scenes, and these give the
+    evaluator's IoU3D and matching real work."""
+    import numpy as np
+    pairs = []
+    for d, _ in kept:
+        k = np.argsort(-d["scores"], kind="stable")[:3]
+        ctr = d["centers3D"][k] + np.float32([0.04, -0.02, 0.06])
+        corners = (d["corners3D"][k] - d["centers3D"][k][:, None]) * np.float32(1.04) + ctr[:, None]
+        pairs.append((d, {"image_id": d["image_id"],
+                          "boxes": d["boxes"][k] + np.float32([1.5, -1.0, 2.0, 0.5]),
+                          "classes": d["classes"][k], "ignore": np.zeros(len(k), bool),
+                          "centers3D": ctr, "corners3D": corners}))
+    return pairs
+
+
+def evaluator_phase(dev, kept):
+    """Phase 21: phase 19's record pairs, and its detections against GT made
+    from them (gt_from_detections), through the evaluator with IoU3D on the
+    card and on the CPU: every AP the same within 1e-9 (should a pair's
+    IoU3D fall on two sides of a threshold, the card's evaluator is held to
+    the CPU's exactly on the CPU's IoUs, and those pairs are printed), and
+    each side's seconds per image."""
+    rep = {}
+    for name, pairs in (("phase 19's records", kept),
+                        ("its detections against GT made from them", gt_from_detections(kept))):
+        rep[name] = evaluator_card_vs_cpu(dev, pairs, name)
+    return rep
+
+
+def evaluator_card_vs_cpu(dev, kept, what):
+    import math
+    from weakcube_tpu_torch.evaluation import omni3d_eval
+
+    ncls = 38
+    res, secs = {}, {}
+    for name, device in (("card", dev), ("CPU", "cpu")):
+        ev = omni3d_eval.Omni3DEvaluator(ncls, proximity=True, device=device)
+        for d, g in kept:
+            ev.add(d, g)
+        t = time.time()
+        res[name] = ev.summarize()
+        secs[name] = time.time() - t
+
+    def flat(r):
+        out = {k: v for k, v in r.items() if not isinstance(v, dict)}
+        for k in ("per_class_2D", "per_class_3D"):
+            out.update({f"{k}[{c}]": v for c, v in r[k].items()})
+        return out
+    a, b = flat(res["card"]), flat(res["CPU"])
+    bad = [k for k in b if k not in a or not (abs(a[k] - b[k]) <= 1e-9 or
+                                              (math.isnan(a[k]) and math.isnan(b[k])))]
+    if bad:
+        thrs = omni3d_eval.Omni3DParams("3D").iou_thrs
+        cross = []
+        for d, g in kept:
+            card = omni3d_eval._iou3d_matrix(d["corners3D"], g["corners3D"], dev)
+            cpu = omni3d_eval._iou3d_matrix(d["corners3D"], g["corners3D"], "cpu")
+            i, j, t = ((card[..., None] >= thrs) != (cpu[..., None] >= thrs)).nonzero()
+            cross += [(d["image_id"], int(x), int(y), float(card[x, y]), float(cpu[x, y]))
+                      for x, y in zip(i, j)]
+        if not cross:
+            fail(f"the evaluator on the card and on the CPU differ in {bad[:8]} with no IoU3D "
+                 "across a threshold")
+        print(f"[evaluator] {len(cross)} IoU3D pair(s) lie on two sides of a threshold on the "
+              f"card and the CPU (image, detection, GT, card, CPU): {cross[:8]}")
+        compute = omni3d_eval._iou3d_matrix
+        omni3d_eval._iou3d_matrix = lambda dt, gt, device: compute(dt, gt, "cpu")
+        try:
+            ev = omni3d_eval.Omni3DEvaluator(ncls, proximity=True, device=dev)
+            for d, g in kept:
+                ev.add(d, g)
+            again = flat(ev.summarize())
+        finally:
+            omni3d_eval._iou3d_matrix = compute
+        if any(again[k] != b[k] and not (math.isnan(again[k]) and math.isnan(b[k])) for k in b):
+            fail("the card's evaluator on the CPU's IoU3D differs from the CPU's evaluator")
+    n = len(kept)
+    print(f"[evaluator] {what}: {n} images, 38 classes, proximity on: the card and the CPU give "
+          f"the same {len(b)} AP values (within 1e-9{'' if not bad else ' on the same IoU3D'}); "
+          f"AP2D {b['AP2D']:.6f}, AP3D {b['AP3D']:.6f}, AP3D@50 {b.get('AP3D@50', math.nan):.6f}")
+    print(f"[timing] evaluator summarize: IoU3D on the card {secs['card']:.3f} s "
+          f"({1e3 * secs['card'] / n:.2f} ms per image), on the CPU {secs['CPU']:.3f} s "
+          f"({1e3 * secs['CPU'] / n:.2f} ms per image)")
+    return {"card_ms_per_image": 1e3 * secs["card"] / n, "cpu_ms_per_image": 1e3 * secs["CPU"] / n,
+            "n_values": len(b), "crossings": bool(bad)}
+
+
+def periodic_phase(dev, out):
+    """Phase 22: the demo on four rendered PNGs with phase 15's model_final,
+    which must write four JPEGs; then the train CLI with TEST.EVAL_PERIOD 9
+    and VIS_PERIOD 9, resumed from phase 15's model_recent (iteration 8) to
+    10: one evaluation of the live model on the 50 scenes and the two
+    training-time JPEGs at iteration 9, K1 launched for the steps, the
+    evaluation and the vis."""
+    import shutil
+    import tempfile
+    import torch
+    from weakcube_tpu_torch.data import synthetic
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.solver import checkpoint
+    from weakcube_tpu_torch.tools import demo, train_net
+    from weakcube_tpu_torch.utils.util import imwrite
+
+    K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
+    config = os.path.join(HERE, "configs", "Omni_combined.yaml")
+    weights = os.path.join(out, "model_final" + checkpoint.SUFFIX)
+    src = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    try:
+        for r in synthetic.make_dataset(4, seed=3):
+            imwrite(os.path.join(src, f"scene_{r['image_id']}.png"),
+                    synthetic.render_image(r["_scene"]))
+        K1.launches = 0
+        t = time.time()
+        got = demo.main(["--config-file", config, "--input-folder", src, "--output-folder",
+                         os.path.join(src, "out"), "MODEL.WEIGHTS", weights])
+        demo_s, demo_k1 = time.time() - t, K1.launches
+        jpgs = sorted(os.listdir(os.path.join(src, "out")))
+    finally:
+        shutil.rmtree(src, ignore_errors=True)
+    if len(got) != 4 or len(jpgs) != 4 or demo_k1 != 8:
+        fail(f"the demo wrote {jpgs} for {len(got)} images with {demo_k1} K1 launches, "
+             "expected 4 JPEGs and 8 launches")
+    print(f"[demo] python -m weakcube_tpu_torch.tools.demo on 4 rendered 640x480 PNGs (phase "
+          f"15's model_final.pt, threshold 0.25): {demo_s:.1f} s, wrote {', '.join(jpgs)}; "
+          f"boxes drawn {[len(g['scores']) for g in got]}; K1 launches {demo_k1}")
+
+    K1.launches = bwd.launches = 0
+    t = time.time()
+    state, hist = train_net.main(["--config-file", config, "--synthetic", "50", "--resume",
+                                  "--max-iters", "10", "SOLVER.CHECKPOINT_PERIOD", "4",
+                                  "TEST.EVAL_PERIOD", "9", "VIS_PERIOD", "9", "OUTPUT_DIR", out])
+    torch.cuda.synchronize()
+    wall, k1, kb = time.time() - t, K1.launches, bwd.launches
+    evals = [h for h in hist if "eval" in h]
+    vis = sorted(os.listdir(os.path.join(out, "vis")))
+    if [h["iteration"] for h in hist] != [8, 9] or len(evals) != 1 or \
+            evals[0]["iteration"] != 8 or evals[0]["eval"]["timing"]["images"] != 50:
+        fail(f"the periodic run: iterations {[h['iteration'] for h in hist]}, evaluations after "
+             f"{[h['iteration'] + 1 for h in evals]}, expected one after iteration 9 on 50 images")
+    if vis != ["iter_000009_gt.jpg", "iter_000009_gt_vs_pred_3d.jpg"]:
+        fail(f"VIS_PERIOD 9 wrote {vis}")
+    n_eval_batches = evals[0]["eval"]["timing"]["batches"]
+    want_k1 = 2 * 2 + 2 * n_eval_batches + 2
+    if k1 != want_k1 or kb != 4:
+        fail(f"the periodic run launched K1 {k1} times (expected {want_k1}: 2 steps, "
+             f"{n_eval_batches} eval batches and one vis forward) and K1-bwd {kb} (expected 4)")
+    res = evals[0]["eval"]
+    print(f"[periodic] train_net --resume --max-iters 10 TEST.EVAL_PERIOD 9 VIS_PERIOD 9: "
+          f"{wall:.1f} s; one evaluation after iteration 9 on {res['timing']['images']} images "
+          f"(AP2D {res['AP2D']:.4f}, AP3D {res['AP3D']:.4f}, "
+          f"{res['timing']['seconds']:.2f} s inference + {res['timing']['evaluator_s']:.2f} s "
+          f"evaluator), vis {', '.join(vis)}; K1 launches {k1}, K1-bwd {kb}")
+    return {"demo_s": demo_s, "periodic_s": wall}
+
+
 def main() -> None:
     try:
         import torch
@@ -1264,8 +1591,10 @@ def main() -> None:
         from weakcube_tpu_torch.entry import (dims_priors, flagship_cfg, make_batch,
                                               tiny_cfg)
         from weakcube_tpu_torch.models.rcnn3d import build_model
+        from weakcube_tpu_torch.evaluation import _native as eval_native
         from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
         from weakcube_tpu_torch.ops import flash_attention_cuda, roi_align_cuda
+        from weakcube_tpu_torch.ops.cuda_build import build_host_library
     except ImportError as e:
         fail(f"the weakcube_tpu_torch package is not beside this script: {e}")
     # every float32 comparison below runs in full float32
@@ -1284,18 +1613,22 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # -- 2. build K1 and K2, one nvcc each, in parallel ---------------------
+    # -- 2. build K1 and K2, one nvcc each, and the evaluator's matcher (g++),
+    # in parallel, so that no later phase's time holds a compile -------------
     t = time.time()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = [(name, mod, pool.submit(mod.build))
                   for name, mod in (("K1", roi_align_cuda), ("K2", flash_attention_cuda))]
+        matcher = pool.submit(build_host_library, eval_native.SOURCE)
         for name, mod, fut in builds:
             lib_path = fut.result()
             print(f"[build] {name} {os.path.relpath(lib_path, HERE)} "
-                  f"(both built in {time.time() - t:.1f} s)")
+                  f"(all built in {time.time() - t:.1f} s)")
             for line in mod.build_log.splitlines():
                 if any(w in line for w in ("registers", "spill", "Compiling entry", "C75")):
                     print(f"  ptxas: {line.strip()}")
+        print(f"[build] the evaluator's matcher (g++) "
+              f"{os.path.relpath(matcher.result()[0], HERE)}")
 
     # -- 3. K1 against its plain version at the main path's shapes ---------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1506,22 +1839,47 @@ def main() -> None:
     print(f"[phase] 11-13 (training step) took {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
 
-    # -- 15.-18. the train CLI, the in-graph ground plane, IoU3D, RANSAC ---------
-    for name, phase in (("15 (train CLI)", cli_phases), ("16 (in-graph ground plane)", ground_phase),
-                        ("17-18 (IoU3D and RANSAC, card vs CPU)", geometry_phases)):
-        t = time.time()
-        phase(dev)
-        torch.cuda.empty_cache()
-        print(f"[phase] {name} took {time.time() - t:.1f} s")
+    # -- 15.-22. the train CLI, the in-graph ground plane, IoU3D, RANSAC; the
+    # eval CLI on the train CLI's checkpoint, K1 at its shapes, the evaluator
+    # card vs CPU, periodic evaluation, vis and the demo ----------------------
+    import shutil
+    import tempfile
+    cli_out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    rep = {}
+    try:
+        for name, phase in (
+                ("15 (train CLI)", lambda: cli_phases(dev, cli_out)),
+                ("16 (in-graph ground plane)", lambda: ground_phase(dev)),
+                ("17-18 (IoU3D and RANSAC, card vs CPU)", lambda: geometry_phases(dev)),
+                ("19 (eval CLI)", lambda: eval_phase(dev, cli_out)),
+                ("20 (K1 at the eval batch's shapes)", lambda: eval_k1_phase(dev, cli_out)),
+                ("21 (evaluator, card vs CPU)", lambda: evaluator_phase(dev, rep["19"][1])),
+                ("22 (periodic eval, vis, demo)", lambda: periodic_phase(dev, cli_out))):
+            t = time.time()
+            rep[name.split()[0]] = phase()
+            torch.cuda.empty_cache()
+            print(f"[phase] {name} took {time.time() - t:.1f} s")
+    finally:
+        shutil.rmtree(cli_out, ignore_errors=True)
     print(f"[done] total run {time.time() - t_start:.1f} s")
+    ev, ev_k1 = rep["19"][0], rep["20"]
 
     # -- 14. result lines ---------------------------------------------------
+    print(card)  # again beside the results at the end of the output
+    # K1's launches: the detection forward's and the eval CLI's runs, each
+    # counted from 0; its times are per b8 forward, and per b32 eval batch
+    # under "eval_batch"
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align (ROIAlignV2 fwd), box + cube pooler per forward",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": launches, "max_abs_err": max(max_err.values()),
+        "launches": launches + ev["launches"],
+        "launches_by_path": {"detection forward (4 x b8)": launches,
+                             f"eval CLI ({ev['batches']} x b{EVAL_BATCH})": ev["launches"]},
+        "max_abs_err": max(max(max_err.values()), ev_k1["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": bound_by, "library_ms": tot["library_ms"]}, k1_bwd, k2]}))
+        "bound_by": bound_by, "library_ms": tot["library_ms"],
+        "eval_batch": {k: ev_k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}}, k1_bwd, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

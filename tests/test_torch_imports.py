@@ -40,7 +40,10 @@ def test_import_leaves_jax_out():
             "weakcube_tpu_torch.data.build, weakcube_tpu_torch.data.builtin, "
             "weakcube_tpu_torch.models.priors, weakcube_tpu_torch.utils.util, "
             "weakcube_tpu_torch.utils.events, weakcube_tpu_torch.solver.checkpoint, "
-            "weakcube_tpu_torch.tools.train_net; "
+            "weakcube_tpu_torch.tools.train_net, weakcube_tpu_torch.tools.eval_net, "
+            "weakcube_tpu_torch.tools.demo, weakcube_tpu_torch.evaluation, "
+            "weakcube_tpu_torch.evaluation.omni3d_eval, weakcube_tpu_torch.evaluation._native, "
+            "weakcube_tpu_torch.vis, weakcube_tpu_torch.vis.logperf, weakcube_tpu_torch.vis.vis; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -4,8 +4,9 @@ CPU, and its checkpoints.
 configs/synthetic_smoke.yaml with the flagship's DLA-34 backbone at 64 px,
 batch 2, on 4 synthetic scenes: the CLI trains, logs metrics.json, saves
 model_recent and model_final, resumes from model_recent, and restarts from
-it when the skipped share reaches MODEL.STABILIZE; evaluation and
-visualisation raise until they are ported. A checkpoint saved and loaded
+it when the skipped share reaches MODEL.STABILIZE; it accepts --eval-only,
+TEST.EVAL_PERIOD and VIS_PERIOD, which tests/test_torch_eval_cli.py runs. A
+checkpoint saved and loaded
 into a fresh model continues a CPU step exactly (on the card K1-bwd's float
 atomics make two runs differ in rounding).
 """
@@ -89,8 +90,16 @@ def test_cli_restarts_from_the_checkpoint(tmp_path, caplog):
     (("--eval-only",), ()),
 ])
 def test_cli_refuses_evaluation(tmp_path, args, opts):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli(tmp_path, *args, opts=opts)
+    """These raised NotImplementedError before evaluation and visualisation
+    were ported; the CLI's setup now takes them."""
+    parsed = train_net.parse_args(["--config-file", os.path.join(REPO, "configs",
+                                                                 "synthetic_smoke.yaml"),
+                                   *args, *OPTS, "OUTPUT_DIR", str(tmp_path), *opts])
+    cfg = train_net.setup(parsed)
+    assert parsed.eval_only == ("--eval-only" in args)
+    want = dict(zip(opts[::2], map(int, opts[1::2])))
+    assert cfg.TEST.EVAL_PERIOD == want.get("TEST.EVAL_PERIOD", 0)
+    assert cfg.VIS_PERIOD == want.get("VIS_PERIOD", 0)
 
 
 def test_checkpoint_continues_a_step_exactly(tmp_path):

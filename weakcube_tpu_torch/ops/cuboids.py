@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import rotations
@@ -30,6 +31,18 @@ def get_cuboid_verts_3d(box3d: torch.Tensor, R: Optional[torch.Tensor] = None) -
     if R is not None:
         dt = torch.promote_types(R.dtype, local.dtype)  # einsum does not promote
         local = torch.einsum("...ij,...kj->...ki", R.to(dt), local.to(dt))
+    return local + ctr[..., None, :]
+
+
+def get_cuboid_verts_3d_np(box3d, R=None) -> np.ndarray:
+    """numpy twin of get_cuboid_verts_3d in float32, for building
+    evaluation records on the host."""
+    box3d = np.asarray(box3d, np.float32)
+    ctr = box3d[..., 0:3]
+    half = 0.5 * np.stack([box3d[..., 5], box3d[..., 4], box3d[..., 3]], -1)
+    local = _CORNER_SIGNS.numpy() * half[..., None, :]
+    if R is not None:
+        local = np.einsum("...ij,...kj->...ki", np.asarray(R, np.float32), local)
     return local + ctr[..., None, :]
 
 

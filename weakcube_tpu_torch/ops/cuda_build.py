@@ -1,11 +1,12 @@
-"""Build a CUDA source of csrc/ into a shared library with a plain C
-interface, for loading with ctypes.
+"""Build a source of csrc/ into a shared library with a plain C interface,
+for loading with ctypes.
 
-`build_library(source)` compiles with nvcc for sm_90a into `build/` at the
-repository root, named by a hash of the source and the flags (an edit
-rebuilds), unless that library is there already. The compiler runs only on
-the machine with the card, at a kernel's first use; importing this module
-runs nothing.
+`build_library(source)` compiles a CUDA source with nvcc for sm_90a;
+`build_host_library(source)` compiles a host C++ source with g++. Both
+write into `build/` at the repository root, named by a hash of the source,
+the compiler and its flags (an edit rebuilds), unless that library is there
+already. A compiler runs only at a library's first use (nvcc only on the
+machine with the card); importing this module runs nothing.
 """
 from __future__ import annotations
 
@@ -13,13 +14,14 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Tuple
+from typing import List, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -32,22 +34,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_library(source: str) -> Tuple[str, str]:
-    """Compile `source` (a path) into build/lib<stem>_<hash>.so unless it is
-    there already. Returns the library's path and the compiler's report
-    (registers, spills; empty when nothing was compiled)."""
+def _build(source: str, compiler: str, flags: List[str]) -> Tuple[str, str]:
     with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        key = f.read() + " ".join([os.path.basename(compiler), *flags]).encode()
+    digest = hashlib.sha1(key).hexdigest()[:12]
     os.makedirs(BUILD_DIR, exist_ok=True)
     stem = os.path.splitext(os.path.basename(source))[0]
     lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(lib_path):
         return lib_path, ""
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
-                          capture_output=True, text=True)
+    proc = subprocess.run([compiler, *flags, "-o", tmp, source], capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed on {source}:\n{log}")
     os.replace(tmp, lib_path)
     return lib_path, log
+
+
+def build_library(source: str) -> Tuple[str, str]:
+    """Compile the CUDA `source` (a path) into build/lib<stem>_<hash>.so
+    unless it is there already. Returns the library's path and the
+    compiler's report (registers, spills; empty when nothing was compiled)."""
+    return _build(source, _nvcc(), NVCC_FLAGS)
+
+
+def build_host_library(source: str) -> Tuple[str, str]:
+    """Compile the host C++ `source` with g++ (-O2 -shared -fPIC) into
+    build/lib<stem>_<hash>.so unless it is there already. Returns the
+    library's path and the compiler's output."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {source} cannot be built")
+    return _build(source, gxx, GXX_FLAGS)

@@ -2,8 +2,8 @@
 device.
 
     python -m weakcube_tpu_torch.tools.train_net --config-file configs/Omni_combined.yaml \
-        [--resume] [--max-iters N] [--synthetic N] [--device cpu] [--profile] \
-        OPT1 VAL1 OPT2 VAL2 ...
+        [--eval-only] [--eval-vis N] [--resume] [--max-iters N] [--synthetic N] \
+        [--device cpu] [--profile] OPT1 VAL1 OPT2 VAL2 ...
 
 Runs on the card unless `--device cpu` is given. Trains on the registered
 datasets of cfg.DATASETS.TRAIN, or on N procedurally rendered scenes
@@ -16,8 +16,12 @@ iterations, up to MAX_TRAINING_ATTEMPTS). Each step draws from a generator
 seeded from SEED and the iteration, so a resumed run draws what an
 uninterrupted one would.
 
-Evaluation and visualisation are not ported yet: --eval-only,
-TEST.EVAL_PERIOD > 0 and VIS_PERIOD > 0 raise (ROADMAP.md).
+`--eval-only` evaluates a checkpoint on cfg.DATASETS.TEST
+(tools/eval_net.py::do_test). During training, TEST.EVAL_PERIOD > 0
+evaluates the live model every EVAL_PERIOD iterations (before the last),
+and VIS_PERIOD > 0 saves JPEGs of the GT 2D boxes and of the GT and
+predicted cuboids of the batch's first image into OUTPUT_DIR/vis. Errors
+of either stop the run.
 """
 from __future__ import annotations
 
@@ -39,14 +43,16 @@ logger = logging.getLogger("weakcube_tpu_torch")
 TICK_GATED_METRICS = ("Cube/IoU3D",)
 MAX_TRAINING_ATTEMPTS = 10  # reference train_net.py:62
 LOG_PERIOD = 20
-NOT_PORTED_HINT = ("evaluation and visualisation are not ported to PyTorch yet (ROADMAP.md, "
-                   "Queue A items 5 and 6)")
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config-file", required=True)
-    p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--eval-only", action="store_true",
+                   help="evaluate MODEL.WEIGHTS (else OUTPUT_DIR's checkpoint) on cfg.DATASETS.TEST")
+    p.add_argument("--eval-vis", type=int, default=0,
+                   help="save the first N evaluated images' detections as JPEGs in "
+                        "OUTPUT_DIR/eval_vis")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--max-iters", type=int, default=None,
                    help="override SOLVER.MAX_ITER")
@@ -57,7 +63,7 @@ def parse_args(argv=None):
                    help="write a torch.profiler trace of iterations 10-20 to "
                         "OUTPUT_DIR/profile")
     p.add_argument("--device", default=None,
-                   help="torch device to train on (default: cuda; 'cpu' for the CPU)")
+                   help="torch device to run on (default: cuda; 'cpu' for the CPU)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -74,21 +80,20 @@ def setup(args):
         cfg.merge_from_list(args.opts)
     if args.max_iters:
         cfg.SOLVER.MAX_ITER = args.max_iters
-    if args.eval_only:
-        raise NotImplementedError(f"--eval-only: {NOT_PORTED_HINT}")
-    for key, value in (("TEST.EVAL_PERIOD", cfg.TEST.EVAL_PERIOD), ("VIS_PERIOD", cfg.VIS_PERIOD)):
-        if value > 0:
-            raise NotImplementedError(
-                f"{key} = {value}: {NOT_PORTED_HINT}; pass the opts "
-                "`TEST.EVAL_PERIOD 0 VIS_PERIOD 0` to train without them")
     cfg.freeze()
     np.random.seed(seed_of(cfg))
     return cfg
 
 
-def build_data(cfg, args):
-    """Return (records, loaders, num_classes)."""
+def build_data(cfg, args, split: str = "train"):
+    """Return (records, loaders, num_classes) of the training split
+    (cfg.DATASETS.TRAIN) or the test split (cfg.DATASETS.TEST; detectron2's
+    do_test evaluates it), or of `--synthetic N` rendered scenes for either.
+    The test split loads images alone: inference reads nothing else, and
+    its synthetic scenes are rendered up front, so that the evaluation's
+    throughput measures the pipeline rather than the rasteriser."""
     from ..data import datasets as ds
+    test = split == "test"
     if args.synthetic:
         from ..data import synthetic
         records = synthetic.make_dataset(args.synthetic, seed=0)
@@ -107,21 +112,25 @@ def build_data(cfg, args):
         def _ground(i):
             return synthetic.ground_mask(by_id[i]["_scene"])
 
-        loaders = {
-            "image": lambda r: _img(r["image_id"]),
-            "depth": lambda r: _depth(r["image_id"]),
-            "ground": lambda r: _ground(r["image_id"]),
-        }
+        loaders = {"image": lambda r: _img(r["image_id"])}
+        if test:
+            t0 = time.time()
+            for r in records:
+                _img(r["image_id"])
+            logger.info("pre-rendered %d synthetic scenes in %.1fs", len(records), time.time() - t0)
+        else:
+            loaders.update(depth=lambda r: _depth(r["image_id"]),
+                           ground=lambda r: _ground(r["image_id"]))
         return records, loaders, len(synthetic.CATEGORIES)
 
     fs = ds.get_filter_settings_from_cfg(cfg)
     records = []
-    for name in cfg.DATASETS.TRAIN:
+    for name in (cfg.DATASETS.TEST if test else cfg.DATASETS.TRAIN):
         if name not in ds.DATASET_CATALOG:
             ds.simple_register(name, fs)
         records.extend(ds.DATASET_CATALOG[name]())
     loaders = {}
-    if any("depth_image_path" in r for r in records):
+    if not test and any("depth_image_path" in r for r in records):
         loaders["depth"] = lambda r: ds.load_npz_map(r["depth_image_path"]) \
             if "depth_image_path" in r else None
         loaders["ground"] = lambda r: ds.load_npz_map(r["ground_image_path"]) \
@@ -138,8 +147,8 @@ def step_generator(seed: int, it: int, device) -> torch.Generator:
 def do_train(cfg, args, records, loaders, num_classes):
     """Train from cfg (and args.resume / args.profile / args.device).
     Returns (state, history): the final TrainState and one dict per
-    iteration (iteration, attempt, data_time and step_time in seconds, and
-    the step's logs)."""
+    iteration (iteration, attempt, data_time and step_time in seconds, the
+    step's logs, and "eval", do_test's results, after an evaluation)."""
     from ..data.build import build_train_batches, prefetch, to_device
     from ..models.priors import compute_priors
     from ..models.rcnn3d import build_model, resolve_device
@@ -148,6 +157,7 @@ def do_train(cfg, args, records, loaders, num_classes):
                                      load_weights_pretrain)
     from ..utils.events import EventStorage, default_writers
     from ..utils.util import ETA
+    from .eval_net import do_test
 
     dev = resolve_device(args.device)
     seed = seed_of(cfg)
@@ -178,6 +188,7 @@ def do_train(cfg, args, records, loaders, num_classes):
     eta = ETA(max_iter - start_iter)
     attempt, it = 1, start_iter
     history, last_finite = [], {}
+    eval_data = None  # the test split's (records, loaders), built at the first evaluation
     data_time = step_time = 0.0
     t0, n_logged = time.time(), 0
     prof = None
@@ -205,6 +216,15 @@ def do_train(cfg, args, records, loaders, num_classes):
             prof.export_chrome_trace(path)
             prof = None
             logger.info("profiler trace written to %s", path)
+        # periodic JPEGs (reference VIS_PERIOD images, rcnn3d.py:126-263) and
+        # evaluation (reference do_test every TEST.EVAL_PERIOD); an error in
+        # either stops the run
+        if cfg.VIS_PERIOD > 0 and it % cfg.VIS_PERIOD == 0:
+            _dump_train_vis(cfg, batch, it, model)
+        if cfg.TEST.EVAL_PERIOD > 0 and it % cfg.TEST.EVAL_PERIOD == 0 and it < max_iter:
+            if eval_data is None:
+                eval_data = build_data(cfg, args, "test")[:2]
+            history[-1]["eval"] = do_test(cfg, args, *eval_data, model=model)
         for k in TICK_GATED_METRICS:
             v = logs.get(k)
             if v is not None and not math.isnan(v):
@@ -256,11 +276,62 @@ def do_train(cfg, args, records, loaders, num_classes):
     return state, history
 
 
+def _dump_train_vis(cfg, batch, it: int, model) -> None:
+    """JPEGs of the batch's first image into OUTPUT_DIR/vis (the reference's
+    visualize_training, rcnn3d.py:126-263): its GT 2D boxes, and its GT
+    cuboids beside the predicted ones of the current weights (the 20 highest
+    scores3D among the valid detections). The inference runs on that image
+    alone, in eval mode under no_grad; the model goes back to its own mode
+    after."""
+    from ..utils.util import imwrite
+    from ..vis.vis import draw_boxes_2d, draw_scene_view, image_to_pixels
+    from .eval_net import fetch
+    img = image_to_pixels(batch["image"][0].cpu().numpy(), cfg)
+    gt = batch["gt"]
+    valid = gt.valid[0].cpu().numpy()
+    vis_dir = os.path.join(cfg.OUTPUT_DIR, "vis")
+    os.makedirs(vis_dir, exist_ok=True)
+    imwrite(os.path.join(vis_dir, f"iter_{it:06d}_gt.jpg"),
+            draw_boxes_2d(img, gt.boxes[0].cpu().numpy()[valid]))
+
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            det = fetch(model({k: batch[k][:1] for k in ("image", "image_wh", "K")}))
+    finally:
+        model.train(was_training)
+    K0 = batch["K"][0].cpu().numpy()
+    # boxes3D: [proj_cx, proj_cy, z, w, h, l, x3d, y3d, z3d]
+    g3d = gt.boxes3D[0].cpu().numpy()[valid]
+    gt_front, _ = draw_scene_view(img, K0, g3d[:, 6:9], g3d[:, 3:6],
+                                  gt.poses[0].cpu().numpy()[valid])
+    s3d = det["scores3D"][0]
+    order = np.argsort(-s3d)[:20]
+    keep = order[det["valid"][0][order]]
+    pr_front, _ = draw_scene_view(img, K0, det["centers3D"][0][keep], det["dims3D"][0][keep],
+                                  det["poses3D"][0][keep], labels=[f"{x:.2f}" for x in s3d[keep]])
+    imwrite(os.path.join(vis_dir, f"iter_{it:06d}_gt_vs_pred_3d.jpg"),
+            np.concatenate([gt_front, pr_front], axis=1))
+
+
 def main(argv=None):
+    """Train (returns (state, history)), or with --eval-only evaluate
+    (returns do_test's results)."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
     args = parse_args(argv)
     cfg = setup(args)
+    if args.eval_only:
+        from ..models.priors import compute_priors
+        from .eval_net import do_test
+        # the model's priors come from the training split, as in training
+        train_records, _, num_classes = build_data(cfg, args, "train")
+        records, loaders, _ = build_data(cfg, args, "test")
+        logger.info("dataset: %d test records", len(records))
+        priors = compute_priors(cfg, train_records,
+                                max(num_classes, cfg.MODEL.ROI_HEADS.NUM_CLASSES))
+        return do_test(cfg, args, records, loaders, priors=priors)
     records, loaders, num_classes = build_data(cfg, args)
     logger.info("dataset: %d records", len(records))
     return do_train(cfg, args, records, loaders, num_classes)

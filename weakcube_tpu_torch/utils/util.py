@@ -37,9 +37,10 @@ def imread(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
-def imwrite(path: str, img: np.ndarray) -> None:
+def imwrite(path: str, img: np.ndarray, **save_kwargs) -> None:
+    """Save an HWC uint8 image; save_kwargs go to PIL (e.g. quality=90)."""
     from PIL import Image
-    Image.fromarray(np.asarray(img, np.uint8)).save(path)
+    Image.fromarray(np.asarray(img, np.uint8)).save(path, **save_kwargs)
 
 
 class ETA:
