@@ -49,7 +49,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      version (the explicit scatter), float32 and bfloat16, on the forward
      checks' box sets (edge cases, p3-p5 squares, tests/torch_roi_boxes.py),
      the detection forward's own pyramid and proposals, and no RoIs; a
-     second launch must agree within the same tolerance;
+     second launch on the same inputs must give the same bits;
  11. the small float32 training step on the card against the CPU with the
      same injected anchor labels and RoIs (tests/torch_train_check.py), and
      the ROI heads' gradient reaching the FPN through K1-bwd;
@@ -60,10 +60,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      step; one step under the profiler;
  13. K1 and K1-bwd held to their plain versions on that step's own
      pyramid, boxes and gradients (box pooler R = 512, cube pooler R = 128
-     per image); K1-bwd's device time per call on them, CUDA events in
-     turns with the autograd backward of the library yardstick, the plain
-     version, the function's byte bound (g read, the level gradients
-     written once) and this implementation's zero + scatter + cast floor;
+     per image), K1-bwd's second launch bitwise equal to its first, and
+     each K1-bwd call launching its kernel and nothing else (profiler);
+     K1-bwd's device time per call on them, CUDA events in turns with the
+     autograd backward of the library yardstick, the plain version, the
+     function's byte bound (g read, the level gradients written once) and
+     the tile gather's floor (g read once per (RoI, tile) pair);
  3b. (after 3) K1's open fault: tests/test_torch_cuda.py::
      test_kernel_many_rois_per_block's seeds, dtypes and box mixes, 50
      launches each (300), every launch bit-identical to the first and within
@@ -261,10 +263,10 @@ def roi_align_bwd_bound(shapes, dtype, boxes, strides, out_size: int, sr: int):
     boxes read once and every level's gradient written once in the level
     dtype, against the float32 operations of the scatter (per g value:
     sr^2 samples x 4 corners x multiply-add). Also returns the floor of this
-    implementation's bytes (`impl_floor_ms`): g read once, the float32
-    gradient pixels the boxes touch (their union per image and level, from
-    footprint) added to once, the float32 level buffers zeroed and, for
-    bf16 levels, read and cast once.
+    implementation's bytes (`impl_floor_ms`): the tile gather reads the g
+    of each RoI once per (RoI, tile) pair that footprint counts (from L2
+    where neighbouring tiles share a RoI, counted here as if from HBM) and
+    writes every level's gradient once.
     Returns (ms, "bytes" or "operations", bytes, impl_floor_ms, impl_bytes)."""
     import torch
     from weakcube_tpu_torch.ops.roi_align_cuda import footprint
@@ -273,8 +275,7 @@ def roi_align_bwd_bound(shapes, dtype, boxes, strides, out_size: int, sr: int):
     elt = metas[0].element_size()
     n_level = sum(m.numel() for m in metas)
     nbytes = fp["out_bytes"] + boxes.numel() * 4 + n_level * elt
-    impl = (fp["out_bytes"] + boxes.numel() * 4 + fp["touched_bytes"] // elt * 4
-            + n_level * 4 + (n_level * (4 + elt) if dtype != torch.float32 else 0))
+    impl = fp["tile_g_bytes"] + boxes.numel() * 4 + n_level * elt
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = fp["out_bytes"] // elt * sr * sr * 4 * 2 / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
@@ -587,8 +588,8 @@ def k1_backward_checks(dev, fwd_levels, fwd_boxes):
     """Phase 10: K1-bwd against its plain version (the explicit scatter) on
     the card, float32 and bfloat16, on the forward checks' box sets, the
     detection forward's own pyramid and proposals, and no RoIs; a second
-    launch on the same inputs must agree within the same tolerance (the
-    atomics' order changes from run to run)."""
+    launch on the same inputs must give the same bits (each pixel sums its
+    RoIs in index order)."""
     import numpy as np
     import torch
     from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
@@ -596,11 +597,12 @@ def k1_backward_checks(dev, fwd_levels, fwd_boxes):
     from torch_roi_boxes import BOX_SETS, box_set
 
     bwd, plain = roi_align_cuda.roi_align_backward, roi_align_cuda.plain_backward
-    # float32: the atomics (and the plain version's index_add_) add the
-    # RoIs' contributions in a run-dependent order, and a bin's weights are
-    # summed separably: a pixel under ~100 overlapping RoIs sums ~100 terms
-    # of O(1), so ~1e-5 of that sum; bfloat16: both accumulate in float32
-    # and round once, at most one bf16 step apart
+    # float32: the kernel sums each pixel's terms in RoI order, a bin's
+    # weights separably, while the plain version's index_add_ adds the
+    # samples' corner terms in an order of its own: a pixel under ~100
+    # overlapping RoIs sums ~100 terms of O(1), so ~1e-5 of that sum;
+    # bfloat16: both accumulate in float32 and round once, at most one bf16
+    # step apart
     tols = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
     gen = torch.Generator(device=dev).manual_seed(5)
     rng = np.random.default_rng(5)
@@ -620,7 +622,9 @@ def k1_backward_checks(dev, fwd_levels, fwd_boxes):
                 fail(f"K1-bwd {name}: gradient {tuple(a.shape)} {a.dtype} strides {a.stride()}")
         want = plain(g, boxes, shapes, [dt] * len(shapes), FPN_STRIDES, out_size, sr)
         check_grads(f"{str(dt)[6:]} {name}", got, want, *tols[dt])
-        check_grads(f"{str(dt)[6:]} {name}, second launch", again, got, *tols[dt])
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            fail(f"K1-bwd {str(dt)[6:]} {name}: a second launch on the same inputs gave "
+                 "other bits")
 
     print("[compare] K1-bwd vs plain, synthetic pyramid b8 x 256 channels at 512 px")
     shapes = [(B, size // s, size // s, C) for s in FPN_STRIDES]
@@ -685,6 +689,7 @@ def train_phases(dev):
     from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
     from weakcube_tpu_torch.ops import roi_align_cuda
     from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
+    from weakcube_tpu_torch.tools.bench_k1_bwd import kernels_of
     from torch_train_check import train_step_card_vs_cpu
 
     K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
@@ -782,9 +787,13 @@ def train_phases(dev):
         shapes, dt = bargs[0], bargs[1]
         want = roi_align_cuda.plain_backward(g, gboxes, shapes, [dt] * len(shapes), *bargs[2:])
         scale = max(w.float().abs().max().item() for w in want)
+        got = bwd(g, gboxes, *bargs)
         errs["K1-bwd"] = max(errs["K1-bwd"], check_grads(
             f"K1-bwd {name} R={gboxes.shape[1]} {str(dt)[6:]} (max |grad| {scale:.3e})",
-            bwd(g, gboxes, *bargs), want, atol * scale, rtol))
+            got, want, atol * scale, rtol))
+        if not all(torch.equal(a, b) for a, b in zip(bwd(g, gboxes, *bargs), got)):
+            fail(f"K1-bwd {name}: a second launch on the step's inputs gave other bits")
+        print(f"  K1-bwd {name}: a second launch gives the same bits")
 
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "impl_ms": 0.0}
     bound_by = None
@@ -809,18 +818,29 @@ def train_phases(dev):
                      ("library_ms", lib_ms), ("impl_ms", impl_ms)):
             tot[k] += x
         print(f"[timing] K1-bwd {name} R={boxes.shape[1]} {str(dt)[6:]}: {dev_ms:.4f} ms of "
-              f"device time per call (zeroing, kernel and cast; 20 calls queued behind a sleep "
-              f"kernel); {ev_ms:.4f} ms per call by CUDA events (median; rounds "
+              f"device time per call (20 calls queued behind a sleep kernel); {ev_ms:.4f} ms per "
+              f"call by CUDA events (median; rounds "
               f"{' '.join(f'{x:.4f}' for x in rounds['K1-bwd'])}); bound {bound:.4f} ms by {by} "
               f"(g read and the level gradients written once, {nbytes:.4e} B; "
-              f"{100 * bound / dev_ms:.1f}% of it); this implementation's zero + scatter + "
-              f"cast floor {impl_ms:.4f} ms ({impl_bytes:.4e} B; {100 * impl_ms / dev_ms:.1f}% "
-              f"of it); plain {plain_ms:.3f} ms; library (autograd of F.grid_sample + mean) "
-              f"{lib_ms:.3f} ms (median; rounds "
+              f"{100 * bound / dev_ms:.1f}% of it); the tile gather's floor {impl_ms:.4f} ms "
+              f"(g read once per (RoI, tile) pair, {impl_bytes:.4e} B; "
+              f"{100 * impl_ms / dev_ms:.1f}% of it); plain {plain_ms:.3f} ms; library (autograd "
+              f"of F.grid_sample + mean) {lib_ms:.3f} ms (median; rounds "
               f"{' '.join(f'{x:.3f}' for x in rounds['library'])})")
+        split = kernels_of(call)
+        if not split:
+            print(f"[profile] K1-bwd {name}: the profiler recorded no device time: the kernels a "
+                  "call launches not measured")
+        elif [k.split("<")[0] for k, _, _ in split] != ["roi_align_bwd_kernel"]:
+            fail(f"K1-bwd {name}: calls launched {split}, expected roi_align_bwd_kernel and "
+                 "nothing else (no zero fill, no cast)")
+        else:
+            print(f"[profile] K1-bwd {name}: calls launch roi_align_bwd_kernel and nothing else "
+                  f"({split[0][1]:.1f} launches per call recorded, {split[0][2]:.4f} ms of "
+                  "device time each)")
     print(f"[timing] K1-bwd per step (box + cube pooler): {tot['ms']:.4f} ms of device time, "
-          f"bound {tot['bound_ms']:.4f} ms, implementation floor {tot['impl_ms']:.4f} ms, of a "
-          f"{ms:.3f} ms step")
+          f"bound {tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}% of it), the "
+          f"tile gather's floor {tot['impl_ms']:.4f} ms, of a {ms:.3f} ms step")
     return {"name": "roi_align_backward (ROIAlignV2 feature gradient), box + cube pooler per "
                     "training step",
             "route": "cuda", "source": K1_SOURCE, "replaces": K1_BWD_REPLACES,

@@ -12,7 +12,7 @@ from weakcube_tpu_torch.ops import flash_attention_cuda
 from weakcube_tpu_torch.ops import roi_align as t_ra
 from weakcube_tpu_torch.ops import roi_align_cuda
 from weakcube_tpu_torch.ops.attention import attention
-from torch_roi_boxes import BOX_SETS, box_set
+from torch_roi_boxes import BOX_SETS, border_boxes, box_set, edge_boxes, elongated_boxes
 
 STRIDES = (4, 8, 16, 32, 64)
 pytestmark = pytest.mark.cuda
@@ -122,13 +122,31 @@ def test_kernel_refuses_nchw_levels(card):
 
 
 def backward_tol(dt):
-    """float32: atomics (and the plain version's index_add_) add the RoIs'
-    contributions in a run-dependent order and the kernel sums a bin's
-    weights separably; a pixel under ~100 overlapping RoIs sums ~100 terms
-    of O(1) (atol 2e-4, rtol 2e-5); bfloat16: both accumulate in float32
-    and round once to bf16, at most one bf16 step apart (1e-2 + 1e-2
-    rel)."""
+    """float32: the kernel sums each pixel's terms in RoI order, a bin's
+    weights separably, in float32, while the plain version's index_add_ on
+    the card adds the samples' corner terms in an order of its own; a pixel
+    under ~100 overlapping RoIs sums ~100 terms of O(1) (atol 2e-4, rtol
+    2e-5); bfloat16: both accumulate in float32 and round once to bf16, at
+    most one bf16 step apart (1e-2 + 1e-2 rel). Two launches of the kernel
+    on the same inputs give the same bits."""
     return dict(atol=2e-4, rtol=2e-5) if dt == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+
+
+def check_backward(card, g, boxes, shapes, dt, out_size=7, sr=2):
+    """Two K1-bwd launches on the same inputs: one launch per call,
+    gradients NHWC-contiguous in the level dtype, the second bitwise equal
+    to the first, both within backward_tol of the plain scatter."""
+    before = roi_align_cuda.roi_align_backward.launches
+    got = roi_align_cuda.roi_align_backward(g, boxes, shapes, dt, STRIDES, out_size, sr)
+    again = roi_align_cuda.roi_align_backward(g, boxes, shapes, dt, STRIDES, out_size, sr)
+    torch.cuda.synchronize()
+    assert roi_align_cuda.roi_align_backward.launches == before + 2
+    want = t_ra.multilevel_roi_align_backward(g, boxes, shapes, [dt] * len(shapes), STRIDES,
+                                              out_size, sr)
+    for a, b, w, s in zip(got, again, want, shapes):
+        assert a.shape == s and a.dtype == dt and a.is_contiguous()
+        assert torch.equal(b, a)
+        torch.testing.assert_close(a.float(), w.float(), **backward_tol(dt))
 
 
 @pytest.mark.parametrize("boxes_name", BOX_SETS)
@@ -136,41 +154,61 @@ def backward_tol(dt):
 @pytest.mark.parametrize("C", [5, 6, 64, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_matches_plain(card, dtype, C, out_size, sr, boxes_name):
-    """K1-bwd against the plain scatter: one launch per call, gradients
-    NHWC-contiguous in the level dtype; a second launch on the same inputs
-    agrees within the same tolerance (the atomics' order changes)."""
+    """K1-bwd against the plain scatter (check_backward): C = 5 and 6 take
+    the scalar width, 64 and 256 the 16-byte vectors; (7, 2) the
+    compile-time shape, the others the generic one."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(10)
     shapes = [(2, 256 // s, 256 // s, C) for s in STRIDES]
     boxes = torch.from_numpy(box_set(boxes_name, rng, 2, 50, 256)).to(card)
     g = torch.from_numpy(rng.normal(size=(2, 50, out_size, out_size, C)).astype(np.float32))
-    g = g.to(card, dt)
-    before = roi_align_cuda.roi_align_backward.launches
-    got = roi_align_cuda.roi_align_backward(g, boxes, shapes, dt, STRIDES, out_size, sr)
-    again = roi_align_cuda.roi_align_backward(g, boxes, shapes, dt, STRIDES, out_size, sr)
-    torch.cuda.synchronize()
-    assert roi_align_cuda.roi_align_backward.launches == before + 2
-    want = t_ra.multilevel_roi_align_backward(g, boxes, shapes, [dt] * 5, STRIDES, out_size, sr)
-    for a, b, w, s in zip(got, again, want, shapes):
-        assert a.shape == s and a.dtype == dt and a.is_contiguous()
-        torch.testing.assert_close(a.float(), w.float(), **backward_tol(dt))
-        torch.testing.assert_close(b.float(), a.float(), **backward_tol(dt))
+    check_backward(card, g.to(card, dt), boxes, shapes, dt, out_size, sr)
 
 
+def backward_case(case, rng):
+    """(boxes (B, R, 4), level shapes) of the geometry K1-bwd's tiles find
+    hardest; B = 2, C = 256 unless the case says otherwise."""
+    if case == "box sets":        # thousands of overlapping RoIs of every box set
+        boxes = np.concatenate([box_set(n, rng, 2, 800, 256) for n in BOX_SETS], 1)
+        return boxes, [(2, 256 // s, 256 // s, 256) for s in STRIDES]
+    if case == "hot tile":        # 2000 RoIs on one 16 x 16 region of p2 (lines 16-31):
+        # its four 8 x 8 tiles keep 500-700 RoIs each, more than a chunk of
+        # 256 boxes (denser, the plain float32 scatter itself leaves the
+        # float32 tolerance of a float64 sum)
+        xy = rng.uniform(66.0, 120.0, (2, 2000, 2))
+        wh = rng.uniform(0.2, 8.0, (2, 2000, 2))
+        boxes = np.concatenate([xy, np.minimum(xy + wh, 126.0)], -1)
+        return boxes, [(2, 256 // s, 256 // s, 256) for s in STRIDES]
+    if case == "elongated":       # p2 of a 1024 px canvas: 16 tiles a side to cross
+        return (elongated_boxes(rng, 2, 300, 1024),
+                [(2, 1024 // s, 1024 // s, 64) for s in STRIDES])
+    if case == "ragged canvas":   # 480 x 640: p2 120 x 160 .. p6 8 x 10, on every border
+        boxes = np.concatenate([border_boxes(rng, 2, 300, 640), edge_boxes(rng, 2, 100, 640)], 1)
+        boxes[..., 1::2] *= 480.0 / 640.0
+        return boxes, [(2, -(-480 // s), -(-640 // s), 256) for s in STRIDES]
+    C = int(case.split("C=")[1])  # "misaligned g, C=n": g one element past 16 bytes
+    return box_set("edge", rng, 2, 200, 256), [(2, 256 // s, 256 // s, C) for s in STRIDES]
+
+
+@pytest.mark.parametrize("case", ["box sets", "hot tile", "elongated", "ragged canvas",
+                                  "misaligned g, C=5", "misaligned g, C=64"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_backward_many_rois(card, dtype):
-    """Thousands of overlapping RoIs of every box set adding into the same
-    pixels at once."""
+def test_backward_many_rois(card, dtype, case):
+    """check_backward where the tiles' RoI lists are long or odd: thousands
+    of overlapping RoIs adding into the same pixels; more RoIs in one tile
+    than a block holds at once; RoIs crossing many tiles on one axis;
+    levels whose sides are not multiples of the tile, with boxes on all four
+    borders; g at an address that is not 16-byte aligned (the scalar
+    width)."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(11)
-    boxes = np.concatenate([box_set(n, rng, 2, 800, 256) for n in BOX_SETS], 1)
-    boxes = torch.from_numpy(np.ascontiguousarray(boxes)).to(card)
-    shapes = [(2, 256 // s, 256 // s, 256) for s in STRIDES]
-    g = torch.randn((2, boxes.shape[1], 7, 7, 256), device=card).to(dt)
-    got = roi_align_cuda.roi_align_backward(g, boxes, shapes, dt, STRIDES)
-    want = t_ra.multilevel_roi_align_backward(g, boxes, shapes, [dt] * 5, STRIDES)
-    for a, w in zip(got, want):
-        torch.testing.assert_close(a.float(), w.float(), **backward_tol(dt))
+    boxes, shapes = backward_case(case, rng)
+    boxes = torch.from_numpy(np.ascontiguousarray(boxes, np.float32)).to(card)
+    n = 2 * boxes.shape[1] * 49 * shapes[0][-1]
+    g = torch.randn(n + 8, device=card).to(dt)
+    g = (g[1:n + 1] if case.startswith("misaligned") else g[:n]).view(2, -1, 7, 7, shapes[0][-1])
+    assert case.startswith("misaligned") == bool(g.data_ptr() % 16)
+    check_backward(card, g, boxes, shapes, dt)
 
 
 def test_backward_no_rois_launches_nothing(card):

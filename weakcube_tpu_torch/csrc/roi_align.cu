@@ -210,6 +210,32 @@ __device__ __forceinline__ float4 load_box(const float* boxes, int roi) {
   return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
 }
 
+// The RoI's level (0-based), as ops/roi_align.py::assign_fpn_levels. The
+// forward and the backward both place RoIs with this and sample_coord.
+__device__ __forceinline__ int roi_level(float4 box, int min_level, int n_levels) {
+  const float w = fmaxf(box.z - box.x, 0.f);
+  const float h = fmaxf(box.w - box.y, 0.f);
+  const float lvlf = floorf(4.f + log2f(sqrtf(w * h) / 224.f + 1e-8f));
+  const int hi_lvl = min_level + n_levels - 1;
+  return (int)fminf(fmaxf(lvlf, (float)min_level), (float)hi_lvl) - min_level;
+}
+
+// Coordinate of a sample along one axis of a RoI whose edges on that axis
+// are e1, e2 (image units), at fraction t of the RoI (sample p of P:
+// t = (p + 0.5) / P, correctly rounded), on a level of `size` lines and
+// 1 / stride `scale`: aligned (-0.5), clamped to [0, size - 1], each step
+// rounded as the reference rounds it (no fused multiply-add).
+__device__ __forceinline__ float sample_coord(float e1, float e2, float scale, float t, int size) {
+  const float a1 = __fsub_rn(__fmul_rn(e1, scale), 0.5f);
+  const float a2 = __fsub_rn(__fmul_rn(e2, scale), 0.5f);
+  const float len = fmaxf(a2 - a1, 1e-6f);
+  return fminf(fmaxf(__fadd_rn(a1, __fmul_rn(len, t)), 0.f), (float)(size - 1));
+}
+
+__device__ __forceinline__ float sample_t(int p, int P) {
+  return __fdiv_rn((float)p + 0.5f, (float)P);
+}
+
 // All threads of the block call it (it synchronises).
 template <typename T, int V>
 __device__ Plan<T> make_plan(const Pyramid& pyr, float4 box, int b, int out_size, int nsr,
@@ -217,12 +243,7 @@ __device__ Plan<T> make_plan(const Pyramid& pyr, float4 box, int b, int out_size
   constexpr int VB = V * sizeof(T);  // bytes per channel vector
   const int P = out_size * nsr;
 
-  // level assignment, as ops/roi_align.py::assign_fpn_levels
-  const float w = fmaxf(box.z - box.x, 0.f);
-  const float h = fmaxf(box.w - box.y, 0.f);
-  const float lvlf = floorf(4.f + log2f(sqrtf(w * h) / 224.f + 1e-8f));
-  const int lo_lvl = pyr.min_level, hi_lvl = pyr.min_level + pyr.n_levels - 1;
-  const int lvl = (int)fminf(fmaxf(lvlf, (float)lo_lvl), (float)hi_lvl) - lo_lvl;
+  const int lvl = roi_level(box, pyr.min_level, pyr.n_levels);
   const int H = pyr.height[lvl], W = pyr.width[lvl];
 
   // The sample lines of both axes. A bin's lines form one run of staged
@@ -234,20 +255,15 @@ __device__ Plan<T> make_plan(const Pyramid& pyr, float4 box, int b, int out_size
   if (threadIdx.x < 2 * P) {
     const int axis = axis_t, p = threadIdx.x - axis * P;
     const float scale = pyr.scale[lvl];
-    // round each step as the reference does (no fused multiply-add)
-    const float a1 = __fsub_rn(__fmul_rn(axis ? box.x : box.y, scale), 0.5f);
-    const float a2 = __fsub_rn(__fmul_rn(axis ? box.z : box.w, scale), 0.5f);
-    const float len = fmaxf(a2 - a1, 1e-6f);
+    const float e1 = axis ? box.x : box.y, e2 = axis ? box.z : box.w;
     const int size = axis ? W : H;
-    const float c = fminf(fmaxf(__fadd_rn(a1, __fmul_rn(len, __fdiv_rn((float)p + 0.5f, (float)P))),
-                                0.f), (float)(size - 1));
+    const float c = sample_coord(e1, e2, scale, sample_t(p, P), size);
     const float lo = floorf(c);
     sc.lo[axis][p] = (int)lo;
     sc.hi[axis][p] = min((int)lo + 1, size - 1);
     sc.frac[axis][p] = c - lo;
     if (p % nsr == 0) {
-      const float last = fminf(fmaxf(__fadd_rn(a1, __fmul_rn(len, __fdiv_rn(
-          (float)(p + nsr - 1) + 0.5f, (float)P))), 0.f), (float)(size - 1));
+      const float last = sample_coord(e1, e2, scale, sample_t(p + nsr - 1, P), size);
       wide = min((int)floorf(last) + 1, size - 1) - (int)lo + 1 > 2 * nsr;
     }
   }
@@ -532,177 +548,340 @@ extern "C" int roi_align_forward(int dtype, int vec, const void* const* level_pt
 // Backward: the feature gradient of the forward above (K1-bwd).
 //
 // Replaces the XLA backward the JAX package trains with,
-// weakcube_tpu/ops/roi_align.py::matmul_bwd (two dense contractions per
+// weakcube_tpu/ops/roi_align.py:403 matmul_bwd (two dense contractions per
 // level against hat-function matrices, under the custom_vjp of
-// multilevel_roi_align_trainable). ROIAlign is linear in the features, so
-// the gradient is the forward's transpose: g (B, R, P, P, C) is scattered
-// through the same bilinear weights into each level's gradient, with the
-// same level assignment, the same sample coordinates (the same __f*_rn
-// rounding), the same clamp to [0, size - 1] and the same sr x sr mean.
+// multilevel_roi_align_trainable, :495-568). ROIAlign is linear in the
+// features, so the gradient is the forward's transpose: every level pixel
+// gathers g (B, R, P, P, C) through the bilinear weights of the samples
+// that touch it, with the forward's level assignment and sample coordinates
+// (roi_level, sample_coord), the same clamp to [0, size - 1] and the same
+// sr x sr mean.
 //
-// Bound on the card: bytes. g is read once (bf16 at b25, R = 512, C = 256:
-// 321 MB for the box pooler) and each touched gradient pixel is added to;
-// the level buffers are zeroed before and, in bf16, cast once after
-// (chip_smoke.py works the bound out from ops/roi_align_cuda.py::footprint).
+// Bound on the card: bytes. g is read once and every level's gradient is
+// written once in the level dtype (bf16 at b25, R = 512, C = 256: 321 MB +
+// 279 MB for the box pooler, 0.179 ms at 3.35 TB/s); the work is a few
+// float32 FMAs per byte, far below the H100's ~295 operations per byte.
 //
-// Design (the simple, right first version): one block per RoI. Threads
-// place the samples of both axes as the forward does, then build per axis
-// the RoI's gradient lines (the compact run of touched lines when it holds
-// at most 2P of them, else the lo and hi line of each sample in turn: an
-// elongated RoI costs no more than 2P x 2P pixels) and, per line, the
-// contiguous range of bins whose samples touch it with their summed
-// weights (the 1 / sr of the bin mean folded in). Each thread then takes a
-// (pixel, 16-byte channel vector) of the RoI's window, sums the bins
-// covering it separably from g (read through L1, float32 FMA), and adds the
-// sum to the float32 level gradient with vector atomics: one atomic per
-// window pixel and 4 channels, not one per sample and corner. Atomics make
-// the order of the additions from different RoIs change from run to run,
-// so two launches agree to float32 rounding of the sums, not bitwise.
-// A RoI's window is at most 2P x 2P pixels; overlapping RoIs add into the
-// same pixels in any order.
+// Diagnosis of the previous design (one block per RoI adding into zeroed
+// float32 level buffers with float4 atomics, then a cast to bf16; on an
+// H100 at the training step's inputs, tools/bench_k1_bwd.py split, PERF.md):
+// per box-pooler call the zero fill took 0.181 ms, the kernel 0.569 and the
+// cast 0.287; per cube-pooler call 0.196, 0.172 and 0.286. The two passes
+// over the whole float32 levels cost ~0.47 ms per call whatever the RoIs,
+// and the atomics made two launches differ in rounding.
+//
+// Design: a tile-owned gather. Every pixel of every level is written
+// exactly once, in the level dtype, by the one thread that owns it; its
+// sum runs over the same RoIs in the same order on every launch, so two
+// launches give the same bits. No zero pass, no cast pass, no atomics.
+//   * One block per (image, channel chunk, level, 8 x 8 pixel tile),
+//     image-major, so that the blocks in flight read the g of one or two
+//     images (12.8 MB each in the box pooler), which the 50 MB L2 holds
+//     while the image's tiles re-read it. A chunk is 512 bytes of channels
+//     (256 bf16, 128 float32; 16 channels at the scalar width). A warp owns
+//     one tile column: its 32 lanes are the chunk's 32 16-byte channel
+//     vectors, each with the column's 8 pixels (64 float32 sums in
+//     registers), so all lanes of a warp share every loop bound. Ragged
+//     tiles and channels are masked.
+//   * The block finds its own RoIs: it reads the image's boxes blockDim at
+//     a time, keeps those on its level whose line range [lo[0], hi[P - 1]]
+//     meets the tile on both axes, and compacts them by a block-wide
+//     prefix count into a list in ascending RoI index, with their boxes.
+//     R is unbounded.
+//   * Per batch of up to 4 kept RoIs (98 KB): cp.async stages each RoI's g
+//     chunk in shared memory while one warp per RoI, a lane per (axis,
+//     tile line), places the line's samples as the forward does, sums the
+//     weight of each bin on the line over the bin's samples in ascending
+//     order ((1 - f) / sr on lo, f / sr on hi, both where lo == hi, as the
+//     scatter did) and records the bins touching the line (one range: the
+//     sample lines are non-decreasing). One rule for compact and elongated
+//     RoIs alike.
+//   * Each thread adds, per RoI in list order and per own row, for each
+//     bin i on the row: wy * sum_j wx * g[roi, i, j] over the bins j on its
+//     column (float32 FMA). A generic out_size * sr reads g through L1
+//     instead of staging it.
+//   * It rounds each sum once to the level dtype and stores 16-byte
+//     vectors (a warp: one pixel's 512 bytes per row); pixels no RoI
+//     touches get zeros.
+//   * On an H100 at the training step's inputs, 16 x 16 tiles of 64
+//     channels (a warp of 4 columns x 8 vectors, whose lanes' column loops
+//     diverge), batches of 3 RoIs and the column loop unrolled were each
+//     slower (tools/bench_k1_bwd.py variants times them against this
+//     source; PERF.md). Slower in development and not kept: g read
+//     straight from L2 instead of staged, a thread per pixel with all of a
+//     chunk's channels (its unseparated sum also left the float32
+//     tolerance on p6), 32-channel chunks, 512-thread blocks, more blocks
+//     per SM (register spills), the bin loop outermost with a row mask.
+//     The accumulation's loop control and idle lanes set the time more
+//     than its shared-memory loads of g.
 
-__device__ __forceinline__ void red_add(float* p, const float* v, int n) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  if (n == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-    return;
-  }
-#endif
-  for (int e = 0; e < n; ++e) atomicAdd(p + e, v[e]);
-}
+#define BWD_TILE_W 8                 // tile columns: one warp each
+#define BWD_TILE_H 8                 // tile rows: a thread's ROWS pixels
+#define BWD_CHUNK_BYTES 512          // channels per chunk: 32 vectors of 16 bytes, a warp's lanes
+#define BWD_LINES 16                 // table lines per axis (a lane per line and axis)
+#define BWD_THREADS 256
+#define BWD_STAGE_BYTES (98 * 1024)  // 4 RoIs' g chunks of 7 x 7 bins x 512 bytes
+#define BWD_MAX_BATCH 16
 
 struct GradPyramid {
-  float* ptr[MAX_LEVELS];              // float32 (B, H, W, C) gradient of each level
+  void* ptr[MAX_LEVELS];              // (B, H, W, C) gradient of each level, of g's dtype
   int height[MAX_LEVELS];
   int width[MAX_LEVELS];
-  float scale[MAX_LEVELS];             // 1 / stride
+  float scale[MAX_LEVELS];            // 1 / stride
+  int tiles_x[MAX_LEVELS];            // tile columns of each level
+  int tile0[MAX_LEVELS + 1];          // first tile of each level; tile0[n_levels]: all tiles
   int n_levels;
   int min_level;
 };
 
-// V: channels per thread (4 float32 / 8 bf16 from 16-byte loads of g, or 1)
-template <typename T, int V>
-__global__ void __launch_bounds__(256)
+// A block's shape: a chunk of NV channel vectors of V channels (the lanes
+// of a warp, for 16-byte vectors); a thread's ROWS pixels, every SEGS-th
+// row of one tile column; KB RoIs per batch, whose g chunks (OUT x OUT
+// bins) are staged in shared memory when OUT is known at compile time
+// (else read through L1).
+template <typename T, int V, int OUT> struct BwdShape {
+  static constexpr int NV = V == 1 ? 16 : BWD_CHUNK_BYTES / 16;
+  static constexpr int CHUNK = NV * V;
+  static constexpr int ROWS = BWD_TILE_W * BWD_TILE_H * NV / BWD_THREADS;
+  static constexpr int SEGS = BWD_TILE_H / ROWS;
+  static_assert(SEGS * ROWS == BWD_TILE_H, "a column's rows split into whole segments");
+  static_assert(BWD_TILE_W <= BWD_LINES && BWD_TILE_H <= BWD_LINES && 2 * BWD_LINES == 32,
+                "a lane per table line");
+  static constexpr int ROI_BYTES = OUT * OUT * CHUNK * (int)sizeof(T);
+  static constexpr int KB = !OUT ? 4
+                            : BWD_STAGE_BYTES / ROI_BYTES < BWD_MAX_BATCH ? BWD_STAGE_BYTES / ROI_BYTES
+                                                                          : BWD_MAX_BATCH;
+  static constexpr int SMEM_BYTES = OUT ? KB * ROI_BYTES : 0;
+};
+
+// OUT, SR: out_size and sampling_ratio when known at compile time, else 0.
+template <typename T, int V, int OUT, int SR>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
 roi_align_bwd_kernel(GradPyramid pyr, const float* __restrict__ boxes, const T* __restrict__ g,
-                     int R, int C, int out_size, int nsr) {
-  __shared__ int lo[2][MAX_SAMPLES], hi[2][MAX_SAMPLES];
-  __shared__ float frac[2][MAX_SAMPLES];
-  __shared__ int line[2][MAX_LINES];   // element offset of each gradient line
-  __shared__ int bin0[2][MAX_LINES], bin1[2][MAX_LINES];
-  __shared__ float wt[2][MAX_LINES][MAX_SAMPLES];  // [axis][line][bin]
-  const int roi = blockIdx.x, b = roi / R;
-  const float4 box = load_box(boxes, roi);
+                     int R, int C, int out_size_rt, int sr_rt, int n_chunks) {
+  using Shape = BwdShape<T, V, OUT>;
+  constexpr int NV = Shape::NV, CHUNK = Shape::CHUNK, ROWS = Shape::ROWS, SEGS = Shape::SEGS;
+  constexpr int KB = Shape::KB;
+  constexpr int MAXB = OUT ? OUT : MAX_SAMPLES;       // bins per axis
+  constexpr int MAXP = OUT ? OUT * SR : MAX_SAMPLES;  // samples per axis
+  extern __shared__ __align__(16) char g_stage[];     // KB RoIs' g chunks, when staged
+  __shared__ int list[BWD_THREADS];                   // kept RoIs of a chunk of boxes ...
+  __shared__ float4 list_box[BWD_THREADS];            // ... and their boxes
+  __shared__ int warp_kept[BWD_THREADS / 32];
+  __shared__ float t_of[MAXP];                        // (p + 0.5) / P
+  __shared__ float wt[KB][2][MAXB][BWD_LINES];        // [RoI][axis][bin][tile line]
+  __shared__ int2 bins[KB][2][BWD_LINES];             // bins touching each tile line
+  const int out_size = OUT ? OUT : out_size_rt;
+  const int nsr = SR ? SR : sr_rt;
   const int P = out_size * nsr;
 
-  // level assignment and sample placement, as the forward's make_plan
-  const float w = fmaxf(box.z - box.x, 0.f);
-  const float h = fmaxf(box.w - box.y, 0.f);
-  const float lvlf = floorf(4.f + log2f(sqrtf(w * h) / 224.f + 1e-8f));
-  const int lo_lvl = pyr.min_level, hi_lvl = pyr.min_level + pyr.n_levels - 1;
-  const int lvl = (int)fminf(fmaxf(lvlf, (float)lo_lvl), (float)hi_lvl) - lo_lvl;
+  // block -> (image, chunk, level, tile)
+  const int tiles = pyr.tile0[pyr.n_levels];
+  const int tile = blockIdx.x % tiles;
+  const int chunk = (blockIdx.x / tiles) % n_chunks;
+  const int b = blockIdx.x / tiles / n_chunks;
+  int lvl = 0;
+  while (tile >= pyr.tile0[lvl + 1]) ++lvl;
   const int H = pyr.height[lvl], W = pyr.width[lvl];
-  if (threadIdx.x < 2 * P) {
-    const int axis = threadIdx.x < P ? 0 : 1, p = threadIdx.x - axis * P;
-    const float scale = pyr.scale[lvl];
-    const float a1 = __fsub_rn(__fmul_rn(axis ? box.x : box.y, scale), 0.5f);
-    const float a2 = __fsub_rn(__fmul_rn(axis ? box.z : box.w, scale), 0.5f);
-    const float len = fmaxf(a2 - a1, 1e-6f);
-    const int size = axis ? W : H;
-    const float c = fminf(fmaxf(__fadd_rn(a1, __fmul_rn(len, __fdiv_rn((float)p + 0.5f, (float)P))),
-                                0.f), (float)(size - 1));
-    const float l = floorf(c);
-    lo[axis][p] = (int)l;
-    hi[axis][p] = min((int)l + 1, size - 1);
-    frac[axis][p] = c - l;
-  }
-  __syncthreads();
+  const float scale = pyr.scale[lvl];
+  const int t_in = tile - pyr.tile0[lvl];
+  const int ty0 = t_in / pyr.tiles_x[lvl] * BWD_TILE_H, tx0 = t_in % pyr.tiles_x[lvl] * BWD_TILE_W;
+  for (int p = threadIdx.x; p < P; p += BWD_THREADS) t_of[p] = sample_t(p, P);
+  const float t_first = sample_t(0, P), t_last = sample_t(P - 1, P);
 
-  // per axis the gradient lines: the compact run when it holds at most 2P
-  // lines, else the lo and hi line of every sample
-  const int run_y = hi[0][P - 1] - lo[0][0] + 1, run_x = hi[1][P - 1] - lo[1][0] + 1;
-  const int ny = run_y <= 2 * P ? run_y : 2 * P;
-  const int nx = run_x <= 2 * P ? run_x : 2 * P;
-  for (int t = threadIdx.x; t < ny + nx; t += blockDim.x) {
-    const int axis = t < ny ? 0 : 1;
-    const int k = t - axis * ny;
-    const bool rect = axis ? run_x <= 2 * P : run_y <= 2 * P;
-    float* wk = wt[axis][k];
-    for (int i = 0; i < out_size; ++i) wk[i] = 0.f;
-    int ln, b_lo = out_size, b_hi = -1;
-    if (rect) {
-      ln = lo[axis][0] + k;
-      for (int p = 0; p < P; ++p) {
-        const float f = frac[axis][p];
-        const bool at_lo = lo[axis][p] == ln, at_hi = hi[axis][p] == ln;
-        if (at_lo || at_hi) {
-          const int i = p / nsr;
-          if (at_lo) wk[i] += (1.f - f) / (float)nsr;
-          if (at_hi) wk[i] += f / (float)nsr;
-          b_lo = min(b_lo, i);
-          b_hi = max(b_hi, i);
+  // this thread: channel vector v of tile column x, rows seg, seg + SEGS, ...
+  // (16-byte vectors: a warp is one column's 32 vectors, so that its lanes
+  // share every loop bound)
+  const int v = threadIdx.x % NV;
+  const int x = threadIdx.x / NV % BWD_TILE_W;
+  const int seg = threadIdx.x / (NV * BWD_TILE_W);
+  const int c = chunk * CHUNK + v * V;  // C % V == 0, so c < C holds the whole vector
+  const bool live = c < C;
+  const int n_bins = out_size * out_size;
+  const long long roi_elems = (long long)n_bins * C;
+  const float* img_boxes = boxes + (long long)b * R * 4;
+  const T* img_g = g + (long long)b * R * roi_elems + chunk * CHUNK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[ROWS][V];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
+
+  for (int r0 = 0; r0 < R; r0 += BWD_THREADS) {
+    // 1. this chunk's RoIs on the block's level whose line range meets the
+    //    tile on both axes, compacted in ascending index with their boxes
+    const int roi = r0 + threadIdx.x;
+    bool keep = false;
+    float4 box = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (roi < R) {
+      box = load_box(img_boxes, roi);
+      if (roi_level(box, pyr.min_level, pyr.n_levels) == lvl) {
+        const int y_lo = (int)floorf(sample_coord(box.y, box.w, scale, t_first, H));
+        const int y_hi = min((int)floorf(sample_coord(box.y, box.w, scale, t_last, H)) + 1, H - 1);
+        const int x_lo = (int)floorf(sample_coord(box.x, box.z, scale, t_first, W));
+        const int x_hi = min((int)floorf(sample_coord(box.x, box.z, scale, t_last, W)) + 1, W - 1);
+        keep = y_lo < ty0 + BWD_TILE_H && y_hi >= ty0 && x_lo < tx0 + BWD_TILE_W && x_hi >= tx0;
+      }
+    }
+    const unsigned kept = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_kept[warp] = __popc(kept);
+    __syncthreads();
+    int before = 0, n_kept = 0;
+#pragma unroll
+    for (int w = 0; w < BWD_THREADS / 32; ++w) {
+      before += w < warp ? warp_kept[w] : 0;
+      n_kept += warp_kept[w];
+    }
+    if (keep) {
+      const int at = before + __popc(kept & ((1u << lane) - 1u));
+      list[at] = roi;
+      list_box[at] = box;
+    }
+    __syncthreads();
+
+    for (int k0 = 0; k0 < n_kept; k0 += KB) {
+      const int nb = min(KB, n_kept - k0);
+      // 2. stage the batch's g chunks (16-byte cp.async, in flight during
+      //    step 3)
+      if constexpr (OUT != 0) {
+        for (int q = threadIdx.x; q < nb * n_bins * NV; q += BWD_THREADS) {
+          const int k = q / (n_bins * NV), bin = q / NV % n_bins, u = q % NV;
+          if (chunk * CHUNK + u * V >= C) continue;
+          const T* src = img_g + list[k0 + k] * roi_elems + bin * C + u * V;
+          T* dst = reinterpret_cast<T*>(g_stage) + (k * n_bins + bin) * CHUNK + u * V;
+          if constexpr (V * sizeof(T) == 16) {
+            cp_async16(dst, src);
+          } else {
+            *dst = *src;
+          }
+        }
+        cp_async_commit();
+      }
+      // 3. a warp per RoI, a lane per (axis, tile line): the line's samples
+      //    placed as the forward places them, the summed weight of each bin
+      //    on the line (the 1 / sr of the bin mean folded in) and the range
+      //    of bins touching it
+      for (int k = warp; k < nb; k += BWD_THREADS / 32) {
+        const int axis = lane / BWD_LINES, l = lane % BWD_LINES;
+        const int line = (axis ? tx0 : ty0) + l, size = axis ? W : H;
+        const float4 bx = list_box[k0 + k];
+        const float e1 = axis ? bx.x : bx.y, e2 = axis ? bx.z : bx.w;
+        float* w = &wt[k][axis][0][l];
+        for (int i = 0; i < out_size; ++i) w[i * BWD_LINES] = 0.f;
+        int b_lo = out_size, b_hi = -1;
+        for (int p = 0; p < P; ++p) {
+          const float cc = sample_coord(e1, e2, scale, t_of[p], size);
+          const float lo = floorf(cc);
+          const bool at_lo = (int)lo == line, at_hi = min((int)lo + 1, size - 1) == line;
+          if (at_lo || at_hi) {
+            const int i = p / nsr;
+            const float f = cc - lo;
+            if (at_lo) w[i * BWD_LINES] += (1.f - f) / (float)nsr;
+            if (at_hi) w[i * BWD_LINES] += f / (float)nsr;
+            b_lo = min(b_lo, i);
+            b_hi = max(b_hi, i);
+          }
+        }
+        bins[k][axis][l] = make_int2(b_lo, b_hi);
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      // 4. accumulate, RoI by RoI in list order: per own row, for each bin
+      //    i on the row, wy * sum_j wx * g[i, j] over the bins j on the column
+      if (live) {
+        for (int k = 0; k < nb; ++k) {
+          const int2 bx = bins[k][1][x];
+          if (bx.x > bx.y) continue;
+          // the RoI's g chunk: staged (bins CHUNK apart) or in global memory
+          const T* gr = OUT ? reinterpret_cast<const T*>(g_stage) + k * n_bins * CHUNK + v * V
+                            : img_g + list[k0 + k] * roi_elems + v * V;
+          const int bin_stride = OUT ? CHUNK : C;
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            const int2 by = bins[k][0][r * SEGS + seg];
+            for (int i = by.x; i <= by.y; ++i) {
+              const T* gi = gr + (long long)i * out_size * bin_stride;
+              float s[V];
+#pragma unroll
+              for (int e = 0; e < V; ++e) s[e] = 0.f;
+#pragma unroll 1  // 1-2 trips, mostly: unrolled, the code outgrew the instruction cache
+              for (int j = bx.x; j <= bx.y; ++j) {
+                float gv[V];
+                Vec<T, V>::load(gi + j * bin_stride, gv);
+                const float wx = wt[k][1][j][x];
+#pragma unroll
+                for (int e = 0; e < V; ++e) s[e] = fmaf(wx, gv[e], s[e]);
+              }
+              const float wy = wt[k][0][i][r * SEGS + seg];
+#pragma unroll
+              for (int e = 0; e < V; ++e) acc[r][e] = fmaf(wy, s[e], acc[r][e]);
+            }
+          }
         }
       }
-    } else {
-      const int p = k >> 1;
-      const float f = frac[axis][p];
-      ln = (k & 1) ? hi[axis][p] : lo[axis][p];
-      b_lo = b_hi = p / nsr;
-      wk[b_lo] = ((k & 1) ? f : 1.f - f) / (float)nsr;
+      __syncthreads();  // the stage, the tables and the list are refilled next
     }
-    line[axis][k] = ln * (axis ? C : W * C);
-    bin0[axis][k] = b_lo;
-    bin1[axis][k] = b_hi;
   }
-  __syncthreads();
 
-  const int nvec = C / V;
-  float* grad = pyr.ptr[lvl] + (long long)b * H * W * C;
-  const T* gr = g + (long long)roi * out_size * out_size * C;
-  for (int q = threadIdx.x; q < ny * nx * nvec; q += blockDim.x) {
-    const int v = q % nvec, pix = q / nvec;
-    const int ky = pix / nx, kx = pix - (pix / nx) * nx;
-    const int i0 = bin0[0][ky], i1 = bin1[0][ky], j0 = bin0[1][kx], j1 = bin1[1][kx];
-    float acc[V];
+  // 5. write every pixel of the tile once; a warp's stores cover one
+  //    pixel's chunk of channels per row
+  const int xx = tx0 + x;
+  if (live && xx < W) {
+    T* out = reinterpret_cast<T*>(pyr.ptr[lvl]) + ((long long)b * H * W + xx) * C + c;
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] = 0.f;
-    for (int i = i0; i <= i1; ++i) {
-      const float wy = wt[0][ky][i];
-      float row[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e) row[e] = 0.f;
-      for (int j = j0; j <= j1; ++j) {
-        const float wx = wt[1][kx][j];
-        float gv[V];
-        Vec<T, V>::load(gr + ((long long)i * out_size + j) * C + v * V, gv);
-#pragma unroll
-        for (int e = 0; e < V; ++e) row[e] = fmaf(wx, gv[e], row[e]);
-      }
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = fmaf(wy, row[e], acc[e]);
+    for (int r = 0; r < ROWS; ++r) {
+      const int yy = ty0 + r * SEGS + seg;
+      if (yy < H) Vec<T, V>::store(out + (long long)yy * W * C, acc[r]);
     }
-    float* dst = grad + line[0][ky] + line[1][kx] + v * V;
-#pragma unroll
-    for (int e = 0; e < V; e += (V >= 4 ? 4 : 1)) red_add(dst + e, acc + e, V >= 4 ? 4 : 1);
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, int OUT, int SR>
 static int launch_bwd(const GradPyramid& pyr, const float* boxes, const void* g, int B, int R,
                       int C, int out_size, int sr, cudaStream_t stream) {
-  roi_align_bwd_kernel<T, V><<<B * R, 256, 0, stream>>>(
-      pyr, boxes, reinterpret_cast<const T*>(g), R, C, out_size, sr);
+  using Shape = BwdShape<T, V, OUT>;
+  const int n_chunks = (C + Shape::CHUNK - 1) / Shape::CHUNK;
+  const long long grid = (long long)B * n_chunks * pyr.tile0[pyr.n_levels];
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = roi_align_bwd_kernel<T, V, OUT, SR>;
+  // static and dynamic shared memory pass 48 KB together: opt in once per
+  // device (the attribute is per device)
+  static bool opted_in = false;
+  static int opted_dev = -1;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (!opted_in || dev != opted_dev)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Shape::SMEM_BYTES);
+    opted_in = e == cudaSuccess;
+    opted_dev = dev;
+  }
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)grid, BWD_THREADS, Shape::SMEM_BYTES, stream>>>(
+      pyr, boxes, reinterpret_cast<const T*>(g), R, C, out_size, sr, n_chunks);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+static int launch_bwd_shape(const GradPyramid& pyr, const float* boxes, const void* g, int B,
+                            int R, int C, int out_size, int sr, cudaStream_t stream) {
+  if (out_size == 7 && sr == 2)
+    return launch_bwd<T, V, 7, 2>(pyr, boxes, g, B, R, C, out_size, sr, stream);
+  return launch_bwd<T, V, 0, 0>(pyr, boxes, g, B, R, C, out_size, sr, stream);
 }
 
 // Plain C interface of the backward, loaded with ctypes by
 // ops/roi_align_cuda.py.
-//   dtype: 0 float32, 1 bfloat16 (of g); vec: channels per 16-byte vector
-//   of g (float32 4, bfloat16 8) when C % vec == 0 and g is 16-byte
-//   aligned, else 1.
-// grad_ptrs: one zeroed float32 NHWC-contiguous (B, H_l, W_l, C) buffer per
-// level (H_l * W_l * C < 2^31), added to with atomics; boxes (B, R, 4)
-// float32; g (B, R, out_size, out_size, C) contiguous. Launches on `stream`
-// without synchronising; returns the CUDA error code of the launch.
+//   dtype: 0 float32, 1 bfloat16 (of g and the gradients); vec: channels
+//   per 16-byte vector (float32 4, bfloat16 8) when C % vec == 0 and g and
+//   every gradient are 16-byte aligned, else 1.
+// grad_ptrs: one NHWC-contiguous (B, H_l, W_l, C) buffer per level
+// (H_l * W_l * C < 2^31), of g's dtype; every element is written, so it
+// needs no initialisation. boxes (B, R, 4) float32; g (B, R, out_size,
+// out_size, C) contiguous. Launches on `stream` without synchronising;
+// returns the CUDA error code of the launch (nothing is launched, and the
+// gradients are not written, when B * R == 0).
 extern "C" int roi_align_backward(int dtype, int vec, void* const* grad_ptrs,
                                   const int* heights, const int* widths, const float* scales,
                                   int n_levels, int min_level, const float* boxes,
@@ -713,23 +892,26 @@ extern "C" int roi_align_backward(int dtype, int vec, void* const* grad_ptrs,
     return (int)cudaErrorInvalidValue;
   if (B * R == 0) return 0;
   GradPyramid pyr;
+  pyr.tile0[0] = 0;
   for (int l = 0; l < n_levels; ++l) {
     if ((long long)heights[l] * widths[l] * C >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-    pyr.ptr[l] = reinterpret_cast<float*>(grad_ptrs[l]);
+    pyr.ptr[l] = grad_ptrs[l];
     pyr.height[l] = heights[l];
     pyr.width[l] = widths[l];
     pyr.scale[l] = scales[l];
+    pyr.tiles_x[l] = (widths[l] + BWD_TILE_W - 1) / BWD_TILE_W;
+    pyr.tile0[l + 1] = pyr.tile0[l] + pyr.tiles_x[l] * ((heights[l] + BWD_TILE_H - 1) / BWD_TILE_H);
   }
   pyr.n_levels = n_levels;
   pyr.min_level = min_level;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0 && vec == 4)
-    return launch_bwd<float, 4>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
+    return launch_bwd_shape<float, 4>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
   if (dtype == 0 && vec == 1)
-    return launch_bwd<float, 1>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
+    return launch_bwd_shape<float, 1>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
   if (dtype == 1 && vec == 8)
-    return launch_bwd<__nv_bfloat16, 8>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
+    return launch_bwd_shape<__nv_bfloat16, 8>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
   if (dtype == 1 && vec == 1)
-    return launch_bwd<__nv_bfloat16, 1>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
+    return launch_bwd_shape<__nv_bfloat16, 1>(pyr, boxes, g, B, R, C, out_size, sampling_ratio, s);
   return (int)cudaErrorInvalidValue;
 }

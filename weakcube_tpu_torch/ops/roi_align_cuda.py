@@ -12,8 +12,8 @@ get no gradient.
 The kernels are built at first use with nvcc for sm_90a into `build/` at the
 repository root (ops/cuda_build.py) and loaded with ctypes.
 `multilevel_roi_align.launches` and `roi_align_backward.launches` count
-kernel launches. `footprint` counts the bytes K1's staging plan moves and
-the pixels the boxes touch.
+kernel launches. `footprint` counts the bytes K1's staging plan moves, the
+pixels the boxes touch and the (RoI, tile) pairs of K1-bwd's gather.
 """
 from __future__ import annotations
 
@@ -154,8 +154,8 @@ def roi_align_backward(g: torch.Tensor, boxes: torch.Tensor, level_shapes,
     """The feature gradient of the pooler: g (B, R, P, P, C) -> one
     NHWC-contiguous (B, H_l, W_l, C) gradient per level of `level_shapes`,
     in the levels' `dtype`, on the boxes' device. CUDA tensors launch K1-bwd
-    into zeroed float32 buffers (cast once at the end for bf16 levels); CPU
-    tensors take the plain version."""
+    once, which writes every element of the uninitialised gradients (no
+    RoIs: zeros, no launch); CPU tensors take the plain version."""
     shapes = [tuple(s) for s in level_shapes]
     if _on_cpu([g], boxes):
         return plain_backward(g, boxes, shapes, [dtype] * len(shapes), strides,
@@ -167,28 +167,29 @@ def roi_align_backward(g: torch.Tensor, boxes: torch.Tensor, level_shapes,
     if g.shape != (B, R, output_size, output_size, C) or g.device != boxes.device:
         raise ValueError(f"gradient of shape {tuple(g.shape)} on {g.device} does not fit "
                          f"the pooler's output {(B, R, output_size, output_size, C)}")
+    if B * R == 0:
+        return [torch.zeros(s, dtype=dt, device=boxes.device) for s in shapes]
     g = g.to(dt).contiguous()
-    bufs = [torch.zeros(s, dtype=torch.float32, device=boxes.device) for s in shapes]
-    if B * R:
-        vec = 4 if dt == torch.float32 else 8
-        if C % vec or g.data_ptr() % 16:
-            vec = 1
-        L = len(shapes)
-        lib = _load()
-        with torch.cuda.device(boxes.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.roi_align_backward(
-                0 if dt == torch.float32 else 1, vec,
-                (ctypes.c_void_p * L)(*[b.data_ptr() for b in bufs]),
-                (ctypes.c_int * L)(*[s[1] for s in shapes]),
-                (ctypes.c_int * L)(*[s[2] for s in shapes]),
-                (ctypes.c_float * L)(*[1.0 / s for s in strides]),
-                L, min_level, boxes.data_ptr(), g.data_ptr(), B, R, C,
-                output_size, sampling_ratio, stream)
-        if err != 0:
-            raise RuntimeError(f"roi_align_backward failed with CUDA error {err}")
-        roi_align_backward.launches += 1
-    return bufs if dt == torch.float32 else [b.to(dt) for b in bufs]
+    grads = [torch.empty(s, dtype=dt, device=boxes.device) for s in shapes]
+    vec = 4 if dt == torch.float32 else 8
+    if C % vec or any(t.data_ptr() % 16 for t in (g, *grads)):
+        vec = 1
+    L = len(shapes)
+    lib = _load()
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.roi_align_backward(
+            0 if dt == torch.float32 else 1, vec,
+            (ctypes.c_void_p * L)(*[t.data_ptr() for t in grads]),
+            (ctypes.c_int * L)(*[s[1] for s in shapes]),
+            (ctypes.c_int * L)(*[s[2] for s in shapes]),
+            (ctypes.c_float * L)(*[1.0 / s for s in strides]),
+            L, min_level, boxes.data_ptr(), g.data_ptr(), B, R, C,
+            output_size, sampling_ratio, stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align_backward failed with CUDA error {err}")
+    roi_align_backward.launches += 1
+    return grads
 
 
 roi_align_backward.launches = 0
@@ -227,19 +228,26 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
 multilevel_roi_align.launches = 0
 
 
-def footprint(levels, boxes, strides, out_size: int, sr: int, min_level: int = 2):
-    """The kernel's shared-memory staging plan, counted on the boxes' device
-    (for the bounds that chip_smoke.py prints; nothing here launches the
-    kernel). Per RoI and axis the kernel stages the compact run of lines
-    between the lowest and highest touched line when it holds at most 2P
-    lines (P = out_size * sr) and no bin spans more than 2 * sr of them, else
-    the 2P touched lines themselves.
+def footprint(levels, boxes, strides, out_size: int, sr: int, min_level: int = 2,
+              tile: int = 8):
+    """The kernels' work plans, counted on the boxes' device (for the bounds
+    that chip_smoke.py prints; nothing here launches a kernel). Per RoI and
+    axis K1 stages the compact run of lines between the lowest and highest
+    touched line when it holds at most 2P lines (P = out_size * sr) and no
+    bin spans more than 2 * sr of them, else the 2P touched lines themselves.
+    K1-bwd's blocks each own a tile x tile pixel tile of a level (per
+    channel chunk) and read the g of every RoI on that level whose line
+    range [lo of its first sample, hi of its last] meets the tile on both
+    axes.
     Returns a dict of tensors and totals: `levels` and `ny`, `nx` (B, R)
     staged lines, `staged_bytes` (sum of ny * nx * C * itemsize: what the
     staging moves from L2 to the SMs), `touched_bytes` (the union over RoIs
     of the pixels whose values are read, per image and level, times
-    C * itemsize), `out_bytes`, and `gather_bytes` (sr^2 * 4 corner reads per
-    output value, what a per-sample gather loads)."""
+    C * itemsize), `out_bytes`, `gather_bytes` (sr^2 * 4 corner reads per
+    output value, what a per-sample gather loads), `tile_overlaps` (the
+    (RoI, tile) pairs of K1-bwd, the same in every channel chunk) and
+    `tile_g_bytes` (what K1-bwd's blocks read of g: each pair reads the
+    RoI's out_size^2 * C values once)."""
     dev = boxes.device
     B, R = boxes.shape[:2]
     C, elt = levels[0].shape[-1], levels[0].element_size()
@@ -267,16 +275,20 @@ def footprint(levels, boxes, strides, out_size: int, sr: int, min_level: int = 2
         run = hi[..., -1] - lo[..., 0] + 1
         band = hi[..., sr - 1::sr] - lo[..., ::sr] + 1      # lines per bin
         rect = (run <= 2 * P) & (band <= 2 * sr).all(-1)
-        return torch.where(rect, run, torch.full_like(run, 2 * P)), torch.cat([lo, hi], -1)
+        tiles = hi[..., -1] // tile - lo[..., 0] // tile + 1
+        return (torch.where(rect, run, torch.full_like(run, 2 * P)), torch.cat([lo, hi], -1),
+                tiles)
 
-    ny, rows = lines(boxes[..., 1], boxes[..., 3], H)
-    nx, cols = lines(boxes[..., 0], boxes[..., 2], W)
+    ny, rows, tiles_y = lines(boxes[..., 1], boxes[..., 3], H)
+    nx, cols, tiles_x = lines(boxes[..., 0], boxes[..., 2], W)
     pix = offs[lvl][..., None, None] + rows[..., :, None] * W[..., None, None] + cols[..., None, :]
     mask = torch.zeros((B, int(offs[-1]) + levels[-1].shape[1] * levels[-1].shape[2]),
                        dtype=torch.bool, device=dev)
     mask.scatter_(1, pix.reshape(B, -1), True)
     n_out = B * R * out_size * out_size * C
+    overlaps = int((tiles_y * tiles_x).sum())
     return {"ny": ny, "nx": nx, "levels": lvl + min_level,
             "staged_bytes": int((ny * nx).sum()) * C * elt,
             "touched_bytes": int(mask.sum()) * C * elt,
-            "out_bytes": n_out * elt, "gather_bytes": n_out * sr * sr * 4 * elt}
+            "out_bytes": n_out * elt, "gather_bytes": n_out * sr * sr * 4 * elt,
+            "tile_overlaps": overlaps, "tile_g_bytes": overlaps * out_size * out_size * C * elt}
