@@ -101,8 +101,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  22. the demo (tools/demo.py) on four rendered PNGs, four JPEGs; the train
      CLI resumed for two iterations with TEST.EVAL_PERIOD and VIS_PERIOD:
      one evaluation of the live model, the two vis JPEGs;
+ 23. DP-step (after 13, always run): two data-parallel ranks over gloo,
+     both on this card, b4 each of a global b8, the full-width flagship in
+     float32 (TF32 off, cuDNN deterministic), against one process on the b8
+     with the same weights, step generators and samples, after steps 1 and
+     3: every log, the skip decision, every parameter and BatchNorm
+     statistic, within three times the one-process run's own difference
+     when its rows are reordered or its convolutions run without cuDNN (the
+     same sums in another order): a tensor's own or, where larger, its
+     group's median share of its change from the initial weights, and a
+     log's step's largest share of its value; each
+     rank's Gumbel draws are its rows of the global draw, the replicas hold
+     the same bits, and each rank launches K1 and K1-bwd twice per step,
+     holds them to their plain versions on its own inputs and times them;
+ 24. DP-CLI, only where 2 or more cards are visible (else one line says it
+     was not run): the train CLI data-parallel over W = 1, 2, 4, ... cards
+     up to all (NCCL, 25 images per card): 6 iterations with a checkpoint
+     at 4, --resume to 8 under the profiler (rank 0's NCCL kernels per step
+     by kind), images/s, each rank's data, step and mapper ms; the eval CLI
+     sharded over all cards on that checkpoint;
  14. print the kernels line (K1, K1-bwd, K2) and, last,
      {"ok": true, "device": {...}}.
+
+The CLI phases before 24 run one process (TPU.MESH_SHAPE [1]), so that the
+script does the same on a machine with several cards.
 
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -647,7 +669,9 @@ def with_pooler_calls_kept(step):
     (pyramid and boxes) and two K1-bwd calls (g and boxes) kept. Returns
     (K1 calls, K1-bwd calls), the box pooler's first in each (the forward
     meets the box pooler first, the backward the cube pooler; the box pooler
-    has the more RoIs)."""
+    has the more RoIs). The K1-bwd wrapper counts its launches on its
+    module's name, which is the stand-in meanwhile: they are added to its
+    own count after the step."""
     import torch
     from weakcube_tpu_torch.ops import roi_align_cuda
     fwd_calls, bwd_calls = [], []
@@ -660,12 +684,13 @@ def with_pooler_calls_kept(step):
     def keep_bwd(g, boxes, *args):
         bwd_calls.append((g.detach().clone(), boxes, args))
         return bwd(g, boxes, *args)
-    keep_bwd.launches = 0  # the wrapper counts on the module's name, which is this now
+    keep_bwd.launches = 0
     roi_align_cuda._forward, roi_align_cuda.roi_align_backward = keep_fwd, keep_bwd
     try:
         step()
     finally:
         roi_align_cuda._forward, roi_align_cuda.roi_align_backward = fwd, bwd
+        bwd.launches += keep_bwd.launches
     torch.cuda.synchronize()
     if len(fwd_calls) != 2 or len(bwd_calls) != 2:
         fail(f"the kept step made {len(fwd_calls)} K1 and {len(bwd_calls)} K1-bwd calls, "
@@ -673,6 +698,45 @@ def with_pooler_calls_kept(step):
     fwd_calls.sort(key=lambda c: -c[1].shape[1])
     bwd_calls.sort(key=lambda c: -c[1].shape[1])
     return fwd_calls, bwd_calls
+
+
+def check_pooler_calls(fwd_calls, bwd_calls, label: str = "") -> dict:
+    """Hold the kept K1 and K1-bwd calls of one training step
+    (with_pooler_calls_kept) to their plain versions, and K1-bwd's second
+    launch to its first bit for bit. Returns each kernel's largest error."""
+    import torch
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
+    # bf16 levels: kernel and plain version both sum in float32 and round
+    # once to bf16, so they differ by at most one bf16 step of the value
+    # (2^-8 of it, under rtol 1e-2) plus the float32 sums' order (about 1e-6
+    # of the summed magnitudes); atol is 1e-3 of the largest |value| (2e-5
+    # for float32 levels) because the step's gradients are far below the
+    # O(1) that phase 10's absolute tolerances assume
+    errs = {"K1": 0.0, "K1-bwd": 0.0}
+    for name, (levels, boxes, args), (g, gboxes, bargs) in zip(("box pooler", "cube pooler"),
+                                                                fwd_calls, bwd_calls):
+        name = label + name
+        if not torch.equal(boxes, gboxes):
+            fail(f"{name}: the kept K1 and K1-bwd calls pooled other boxes")
+        strides, out_size, sr, min_level = args
+        want = roi_align_cuda.plain(levels, boxes, strides, out_size, sr, min_level)
+        rtol, atol = (1e-2, 1e-3) if levels[0].dtype == torch.bfloat16 else (1e-5, 2e-5)
+        errs["K1"] = max(errs["K1"], check_close(
+            f"K1 {name} R={boxes.shape[1]} {str(levels[0].dtype)[6:]}",
+            K1(levels, boxes, strides, out_size, sr, min_level), want,
+            atol * want.float().abs().max().item(), rtol))
+        shapes, dt = bargs[0], bargs[1]
+        want = roi_align_cuda.plain_backward(g, gboxes, shapes, [dt] * len(shapes), *bargs[2:])
+        scale = max(w.float().abs().max().item() for w in want)
+        got = bwd(g, gboxes, *bargs)
+        errs["K1-bwd"] = max(errs["K1-bwd"], check_grads(
+            f"K1-bwd {name} R={gboxes.shape[1]} {str(dt)[6:]} (max |grad| {scale:.3e})",
+            got, want, atol * scale, rtol))
+        if not all(torch.equal(a, b) for a, b in zip(bwd(g, gboxes, *bargs), got)):
+            fail(f"K1-bwd {name}: a second launch on the step's inputs gave other bits")
+        print(f"  K1-bwd {name}: a second launch gives the same bits")
+    return errs
 
 
 def train_phases(dev):
@@ -764,36 +828,9 @@ def train_phases(dev):
                                                                     gen))
 
     # -- 13. K1 and K1-bwd on the step's own inputs ---------------------------
-    # bf16 levels: kernel and plain version both sum in float32 and round
-    # once to bf16, so they differ by at most one bf16 step of the value
-    # (2^-8 of it, under rtol 1e-2) plus the float32 sums' order (about 1e-6
-    # of the summed magnitudes); atol is 1e-3 of the largest |value| (2e-5
-    # for float32 levels) because the step's gradients are far below the
-    # O(1) that phase 10's absolute tolerances assume
     print(f"[compare] K1 and K1-bwd vs plain on the training step's own pyramid, boxes and "
           f"gradients (b{TRAIN_BATCH} @ {TRAIN_SIZE} px)")
-    errs = {"K1": 0.0, "K1-bwd": 0.0}
-    for name, (levels, boxes, args), (g, gboxes, bargs) in zip(("box pooler", "cube pooler"),
-                                                                fwd_calls, bwd_calls):
-        if not torch.equal(boxes, gboxes):
-            fail(f"{name}: the kept K1 and K1-bwd calls pooled other boxes")
-        strides, out_size, sr, min_level = args
-        want = roi_align_cuda.plain(levels, boxes, strides, out_size, sr, min_level)
-        rtol, atol = (1e-2, 1e-3) if levels[0].dtype == torch.bfloat16 else (1e-5, 2e-5)
-        errs["K1"] = max(errs["K1"], check_close(
-            f"K1 {name} R={boxes.shape[1]} {str(levels[0].dtype)[6:]}",
-            K1(levels, boxes, strides, out_size, sr, min_level), want,
-            atol * want.float().abs().max().item(), rtol))
-        shapes, dt = bargs[0], bargs[1]
-        want = roi_align_cuda.plain_backward(g, gboxes, shapes, [dt] * len(shapes), *bargs[2:])
-        scale = max(w.float().abs().max().item() for w in want)
-        got = bwd(g, gboxes, *bargs)
-        errs["K1-bwd"] = max(errs["K1-bwd"], check_grads(
-            f"K1-bwd {name} R={gboxes.shape[1]} {str(dt)[6:]} (max |grad| {scale:.3e})",
-            got, want, atol * scale, rtol))
-        if not all(torch.equal(a, b) for a, b in zip(bwd(g, gboxes, *bargs), got)):
-            fail(f"K1-bwd {name}: a second launch on the step's inputs gave other bits")
-        print(f"  K1-bwd {name}: a second launch gives the same bits")
+    errs = check_pooler_calls(fwd_calls, bwd_calls)
 
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "impl_ms": 0.0}
     bound_by = None
@@ -1026,7 +1063,7 @@ def cli_phases(dev, out):
     base = ["--config-file", os.path.join(HERE, "configs", "Omni_combined.yaml"),
             "--synthetic", "50"]
     opts = ["SOLVER.CHECKPOINT_PERIOD", "4", "TEST.EVAL_PERIOD", "0", "VIS_PERIOD", "0",
-            "OUTPUT_DIR", out]
+            "TPU.MESH_SHAPE", "[1]", "OUTPUT_DIR", out]
     K1.launches = bwd.launches = 0
     t = time.time()
     state, hist = train_net.main(base + ["--max-iters", "6"] + opts)
@@ -1059,7 +1096,7 @@ def cli_phases(dev, out):
            "applied": state.applied, "skipped": state.skipped, "wall_s": wall}
     print(f"[cli] python -m weakcube_tpu_torch.tools.train_net --config-file "
           f"configs/Omni_combined.yaml --synthetic 50 --max-iters 6 SOLVER.CHECKPOINT_PERIOD "
-          f"4 TEST.EVAL_PERIOD 0 VIS_PERIOD 0: {wall:.1f} s; applied {state.applied}, skipped "
+          f"4 TEST.EVAL_PERIOD 0 VIS_PERIOD 0 TPU.MESH_SHAPE [1]: {wall:.1f} s; applied {state.applied}, skipped "
           f"{state.skipped}; K1 launches {k1}, K1-bwd launches {kb} (2 + 2 per step); "
           f"Cube/IoU3D of step 0 {iou0:.6f}; metrics.json {len(lines)} line(s)")
     print("[cli] per iteration (data time / step time, ms): " + ", ".join(
@@ -1310,7 +1347,8 @@ def eval_phase(dev, out):
 
     K1 = roi_align_cuda.multilevel_roi_align
     argv = ["--config-file", os.path.join(HERE, "configs", "Omni_combined.yaml"),
-            "--synthetic", str(EVAL_SCENES), "--eval-only", "OUTPUT_DIR", out]
+            "--synthetic", str(EVAL_SCENES), "--eval-only", "TPU.MESH_SHAPE", "[1]",
+            "OUTPUT_DIR", out]
     torch.cuda.reset_peak_memory_stats()
     kept, undo = kept_records(omni3d_eval.Omni3DEvaluator)
     try:
@@ -1573,7 +1611,8 @@ def periodic_phase(dev, out):
     t = time.time()
     state, hist = train_net.main(["--config-file", config, "--synthetic", "50", "--resume",
                                   "--max-iters", "10", "SOLVER.CHECKPOINT_PERIOD", "4",
-                                  "TEST.EVAL_PERIOD", "9", "VIS_PERIOD", "9", "OUTPUT_DIR", out])
+                                  "TEST.EVAL_PERIOD", "9", "VIS_PERIOD", "9", "TPU.MESH_SHAPE",
+                                  "[1]", "OUTPUT_DIR", out])
     torch.cuda.synchronize()
     wall, k1, kb = time.time() - t, K1.launches, bwd.launches
     evals = [h for h in hist if "eval" in h]
@@ -1596,6 +1635,502 @@ def periodic_phase(dev, out):
           f"{res['timing']['seconds']:.2f} s inference + {res['timing']['evaluator_s']:.2f} s "
           f"evaluator), vis {', '.join(vis)}; K1 launches {k1}, K1-bwd {kb}")
     return {"demo_s": demo_s, "periodic_s": wall}
+
+
+# ---------------------------------------------------------------- data parallel
+DP_BATCH, DP_STEPS, DP_RANKS = 8, 3, 2
+DP_CLI_PER_CARD = 25  # the flagship's images per card (Omni_combined.yaml's b25)
+
+
+def dp_cfg(size: int = TRAIN_SIZE):
+    """configs/Omni_combined.yaml (38 classes, DLA-34 + FPN 256, the recipe's
+    losses) at `size`, computing in float32."""
+    from weakcube_tpu_torch.entry import flagship_cfg
+    cfg = flagship_cfg(size).clone()
+    cfg.defrost()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.freeze()
+    return cfg
+
+
+def deterministic_float32() -> None:
+    """Full float32 (no TF32) and cuDNN's deterministic algorithms."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def take_rows(x, idx):
+    """Rows idx of every array of a batch (a dict or NamedTuple of tensors)."""
+    if isinstance(x, dict):
+        return {k: take_rows(v, idx) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(take_rows(v, idx) for v in x))
+    return x[idx.to(x.device)] if getattr(x, "ndim", 0) >= 1 else x
+
+
+def dp_steps(dev, cfg, batch_size: int, samples=None, order=None, kept: bool = False) -> dict:
+    """DP_STEPS training steps of cfg's model (random weights from seed 0) on
+    the global batch tiny_batch(batch_size, S, S, G=TRAIN_GT, seed=0), its
+    rows in the order `order` (default as made), cut to this process's rows
+    in a data-parallel rank; step i draws from a generator seeded with i.
+    samples: per step the global batch's anchor labels and RoIs to inject
+    (ordered and cut like the batch), or None: drawn, and returned.
+    kept: the first step runs under with_pooler_calls_kept. Returns the
+    logs per step, the TrainState, the samples, the state dict before the
+    first step and after the first and the last (on the CPU) and the kept
+    calls."""
+    import torch
+    from weakcube_tpu_torch.entry import dims_priors, tiny_batch
+    from weakcube_tpu_torch.models import roi_heads, rpn
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
+    mesh, size = make_mesh(), cfg.TPU.IMAGE_SIZE
+    model = build_model(cfg, dims_priors(cfg.MODEL.ROI_HEADS.NUM_CLASSES), device=dev, seed=0,
+                        dtype=torch.float32)
+    state, opt = create_train_state(cfg, model)
+    order = torch.arange(batch_size) if order is None else order
+
+    def part(x):
+        return shard_batch(take_rows(x, order), mesh)
+    batch = part(tiny_batch(batch_size, size, size, G=TRAIN_GT, seed=0, device=dev))
+    sample_anchors, sample_rois = rpn.label_and_sample_anchors, roi_heads.label_and_sample_proposals
+    out, drawn = {"logs": [], "kept": None}, []
+    out["init"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    for i in range(DP_STEPS):
+        cur, step_batch = {}, batch
+        if samples is None:
+            def spy_anchors(*a, **k):
+                cur["rpn"] = sample_anchors(*a, **k)
+                return cur["rpn"]
+
+            def spy_rois(*a, **k):
+                cur["rois"] = sample_rois(*a, **k)
+                return cur["rois"]
+            rpn.label_and_sample_anchors, roi_heads.label_and_sample_proposals = (spy_anchors,
+                                                                                  spy_rois)
+        else:
+            step_batch = dict(batch, rpn_labels=part(samples[i][0]))
+            cur["rois"] = part(samples[i][1])
+            roi_heads.label_and_sample_proposals = lambda *a, **k: cur["rois"]
+
+        def step():
+            nonlocal state
+            state, logs = train_step(model, opt, state, step_batch,
+                                     torch.Generator(device=dev).manual_seed(i))
+            out["logs"].append(logs)
+        try:
+            if kept and i == 0:
+                out["kept"] = with_pooler_calls_kept(step)
+            else:
+                step()
+        finally:
+            rpn.label_and_sample_anchors, roi_heads.label_and_sample_proposals = (sample_anchors,
+                                                                                  sample_rois)
+        if samples is None:
+            drawn.append((cur["rpn"], cur["rois"]))
+        if i in (0, DP_STEPS - 1):
+            out[f"after_{i + 1}"] = {k: v.detach().cpu().clone()
+                                     for k, v in model.state_dict().items()}
+    out.update(state=state, samples=samples or drawn)
+    return out
+
+
+def fingerprints(state_dict: dict) -> list:
+    import hashlib
+    return [hashlib.sha1(v.contiguous().numpy().tobytes()).hexdigest()
+            for v in state_dict.values()]
+
+
+def _dp_rank(rank: int, address: str, tmp: str, cfg, batch_size: int, device: str) -> None:
+    """One DP-step rank (a spawned process): joins the gloo group, checks its
+    Gumbel draws, takes the DP_STEPS steps on its rows with the one-process
+    run's samples injected (the first under with_pooler_calls_kept), holds
+    K1 and K1-bwd to their plain versions on its own pooler inputs and
+    times them (one rank at a time on the shared card), and writes its
+    report to tmp/rank<r>.pt."""
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    import torch
+    from weakcube_tpu_torch.ops import roi_align_cuda, sampling
+    from weakcube_tpu_torch.parallel import distributed
+    from weakcube_tpu_torch.parallel.mesh import Mesh, shard_batch
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        deterministic_float32()
+    # gloo, not NCCL: both ranks share the one card, and NCCL puts one rank
+    # on a card; gloo's CUDA support covers the all-reduces of the step
+    torch.distributed.init_process_group("gloo", init_method=address, world_size=DP_RANKS,
+                                         rank=rank, timeout=distributed.TIMEOUT)
+    try:
+        d = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False, map_location=dev)
+        g = sampling.gumbel((batch_size // DP_RANKS, d["gumbel"].shape[1]),
+                            torch.Generator(device=dev).manual_seed(5))
+        K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
+        K1.launches = bwd.launches = 0
+        run = dp_steps(dev, cfg, batch_size, samples=d["samples"], kept=dev.type == "cuda")
+        rep = {"rank": rank, "logs": run["logs"], "state": run["state"], "k1": K1.launches,
+               "k1_bwd": bwd.launches,
+               "gumbel_rows_equal": torch.equal(g, shard_batch(d["gumbel"],
+                                                               Mesh(DP_RANKS, rank))),
+               "prints": [fingerprints(run[k]) for k in ("after_1", f"after_{DP_STEPS}")]}
+        if rank == 0:
+            rep.update(after_1=run["after_1"], after_last=run[f"after_{DP_STEPS}"])
+        for r in range(DP_RANKS):  # one rank at a time on the shared card
+            if r == rank and run["kept"]:
+                fwd_calls, bwd_calls = run["kept"]
+                rep["errs"] = check_pooler_calls(fwd_calls, bwd_calls, f"rank {rank} ")
+                rep["ms"] = {
+                    "K1": sum(kernel_device_ms(lambda: K1(lv, b, *a), 20) for lv, b, a in fwd_calls),
+                    "K1-bwd": sum(kernel_device_ms(lambda: bwd(gr, b, *a), 20)
+                                  for gr, b, a in bwd_calls)}
+            distributed.barrier()
+        torch.save(rep, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def dp_step_phase(dev, cfg=None, batch_size: int = DP_BATCH) -> dict:
+    """Phase 23 (DP-step): two data-parallel ranks over gloo, both on this
+    card, each with batch_size / 2 rows of the global batch, against one
+    process on the global batch, the full-width flagship in float32 (TF32
+    off, cuDNN deterministic), the same weights, generators and samples:
+    after the first and the last of DP_STEPS steps, every log, the skip
+    decision, every parameter and BatchNorm statistic. The split reorders
+    float32 sums (BatchNorm's sums over the batch, the loss numerators, the
+    gradients: each is two partial sums added by an all-reduce), so each
+    log and tensor is held to three times the one-process run's own
+    difference under such a reordering, measured: the same steps on the
+    same rows rolled by one and reversed (the samples with them), and with
+    PyTorch's convolutions in place of cuDNN's. A tensor after a step
+    (parameter or statistic) is held to the larger of its own reordered
+    runs' difference and its group's median difference as a share of a
+    tensor's change from its initial value, times its own change; a log,
+    one number, to its step's largest difference as a share of a log's
+    value, times its value; each plus 2^-22 of its scale (two float32 roundings of it: the all-reduce's add and the
+    division by the global count, or the update's add). A fault in the
+    update (a wrong share of the gradient) moves a tensor by a part of its
+    change, which its bound, a small share of that change, does not hide.
+    The ranks draw the same Gumbel noise as
+    one process, row for row; they hold the same bits after each step; each
+    launches K1 and K1-bwd twice per step, holds them to their plain
+    versions on its own inputs and times them. Returns the numbers PERF.md
+    keeps."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from weakcube_tpu_torch.ops import sampling
+    from weakcube_tpu_torch.parallel.distributed import free_port
+    cfg = cfg or dp_cfg()
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    if dev.type == "cuda":
+        deterministic_float32()
+    t = time.time()
+    one = dp_steps(dev, cfg, batch_size)
+    # the reference's own reorderings: its rows rolled by one, and reversed
+    # (a roll by half the batch would leave a sum split at the middle as it
+    # was), which reorder the sums over the batch; and PyTorch's own
+    # convolutions in place of cuDNN's, which reorder each image's sums, as
+    # cuDNN's choice of algorithm for the ranks' b4 does
+    orders = [torch.roll(torch.arange(batch_size), 1), torch.arange(batch_size).flip(0)]
+    others = [dp_steps(dev, cfg, batch_size, samples=one["samples"], order=o) for o in orders]
+    torch.backends.cudnn.enabled = False
+    try:
+        others.append(dp_steps(dev, cfg, batch_size, samples=one["samples"]))
+    finally:
+        torch.backends.cudnn.enabled = True
+    print(f"[dp-step] one process, b{batch_size} @ {cfg.TPU.IMAGE_SIZE} px float32, {DP_STEPS} "
+          f"steps, and again on its rows rolled by one, reversed, and without cuDNN: "
+          f"{time.time() - t:.1f} s; applied {one['state'].applied}, "
+          f"{[o['state'].applied for o in others]}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        n_anchors = one["samples"][0][0].labels.shape[1]
+        torch.save({"samples": one["samples"],
+                    "gumbel": sampling.gumbel((batch_size, n_anchors),
+                                              torch.Generator(device=dev).manual_seed(5))},
+                   os.path.join(tmp, "inputs.pt"))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t = time.time()
+        ctx = mp.start_processes(_dp_rank, args=(f"tcp://localhost:{free_port()}", tmp, cfg,
+                                                 batch_size, str(dev)),
+                                 nprocs=DP_RANKS, join=False, start_method="spawn")
+        deadline = time.time() + 900
+        try:
+            while not ctx.join(timeout=5):
+                if time.time() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    fail("the DP-step ranks did not finish in 900 s")
+        except Exception as e:  # a rank raised or exited: its error, then fail
+            fail(f"a DP-step rank failed: {e}")
+        wall = time.time() - t
+        reps = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(DP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    for rep in reps:
+        if not rep["gumbel_rows_equal"]:
+            fail(f"rank {rep['rank']}: its Gumbel draws are not its rows of the global draw")
+        if rep["prints"] != reps[0]["prints"]:
+            fail(f"rank {rep['rank']} holds other parameters or statistics than rank 0")
+        if dev.type == "cuda" and (rep["k1"] != 2 * DP_STEPS or rep["k1_bwd"] != 2 * DP_STEPS):
+            fail(f"rank {rep['rank']} launched K1 {rep['k1']} and K1-bwd {rep['k1_bwd']} times "
+                 f"in {DP_STEPS} steps, expected {2 * DP_STEPS} each")
+        if any(rep["logs"][i][k] != v and not (math.isnan(v) and math.isnan(rep["logs"][i][k]))
+               for i, logs in enumerate(reps[0]["logs"]) for k, v in logs.items()):
+            fail(f"rank {rep['rank']} logged other values than rank 0")
+    got, worst, n = reps[0], [0.0, ""], 0
+    st, st1 = got["state"], one["state"]
+    if (st.step, st.applied, st.skipped) != (st1.step, st1.applied, st1.skipped):
+        fail(f"the ranks' TrainState {st} differs from one process's {st1}")
+    for i in range(DP_STEPS):
+        if {k: got["logs"][i][k] for k in ("diverging", "grad_finite")} != \
+                {k: one["logs"][i][k] for k in ("diverging", "grad_finite")}:
+            fail(f"step {i}: the ranks' skip decision differs from one process's")
+    # each member: (the ranks' value, one process's, the reordered runs', its
+    # value before the steps: 0 for a log, the initial weights for a tensor)
+    groups = [(f"step {i} logs", {k: (got["logs"][i][k], a, [o["logs"][i][k] for o in others], 0.0)
+                                  for k, a in one["logs"][i].items()}) for i in range(DP_STEPS)]
+    for which, key in (("after_1", "after_1"), (f"after_{DP_STEPS}", "after_last")):
+        for name, a in one[which].items():
+            if not a.is_floating_point() and not torch.equal(got[key][name], a):
+                fail(f"DP-step {name} {which}: {got[key][name]} vs {a}")
+        groups.append((f"state {which}", {
+            name: (got[key][name], a, [o[which][name] for o in others], one["init"][name])
+            for name, a in one[which].items() if a.is_floating_point()}))
+    ref = {}
+    for group, members in groups:
+        # per member: its own reordered runs' largest difference r, its change
+        # c over the steps (its value, for a log) and its scale s. A tensor's
+        # r is the largest of its many elements' differences, a stable
+        # yardstick; the group's median r / c holds a tensor whose own
+        # reorderings happened to agree closely (or whose change is a
+        # rounding of its value) to the group's typical share of the change.
+        # A log is one number, too noisy a yardstick alone: a log is held to
+        # the group's largest r / c, times its value
+        logs = group.endswith("logs")
+        rows = []
+        for name, (d, a, bs, base) in members.items():
+            d, a = torch.as_tensor(d).double(), torch.as_tensor(a).double()
+            bs = [torch.as_tensor(b).double() for b in bs]
+            finite = torch.isfinite(a)
+            if any(not torch.equal(finite, torch.isfinite(x)) for x in [d, *bs]):
+                fail(f"DP-step {group} {name}: finite where one process is not, or the other way")
+            if finite.any():
+                delta = (a - torch.as_tensor(base).double())[finite]
+                rows.append((name, float((d - a)[finite].abs().max()),
+                             max(float((b - a)[finite].abs().max()) for b in bs),
+                             float(delta.abs().max()), float(a[finite].abs().max())))
+        rho = (max if logs else statistics.median)([r / c for _, _, r, c, _ in rows if c > 0]
+                                                    or [0.0])
+        held, own = [], 0
+        for name, err, r, c, scale in rows:
+            bound = 3 * max(r, rho * c) + 2.0 ** -22 * scale
+            own += r > rho * c
+            n += 1
+            if err > bound:
+                fail(f"DP-step {group} {name}: max |2 ranks - 1 process| {err:.4e} > bound "
+                     f"{bound:.4e} (3 x max(its reordered runs' {r:.3e}, {rho:.3e} x its change "
+                     f"{c:.4e}) + 2^-22 x its scale {scale:.4e})")
+            if err and err / bound > worst[0]:
+                worst[:] = [err / bound, f"{group} {name}"]
+            if c > 0:
+                held.append(bound / c)
+        ref[group] = {"r_over_change": rho, "own_r_sets": own, "members": len(rows),
+                      "median_bound_over_change": statistics.median(held or [0.0])}
+        print(f"[dp-step] {group}: {len(rows)} members; the reordered runs' "
+              f"{'largest' if logs else 'median'} difference {rho:.3e} of a member's change; "
+              f"{own} held to their own larger difference; a member's bound is a median "
+              f"{ref[group]['median_bound_over_change']:.3e} of its change")
+    ms = [r["ms"] for r in reps if "ms" in r]
+    print(f"[dp-step] {DP_RANKS} ranks over gloo on one card, b{batch_size // DP_RANKS} each, "
+          f"{DP_STEPS} steps: {wall:.1f} s (spawn, build, steps, checks); every rank's Gumbel "
+          f"draws are its rows of the global draw; the replicas hold the same bits after steps "
+          f"1 and {DP_STEPS}; {n} logs and tensors held to one process within 3 x max(their "
+          f"reordered runs' difference, the group's largest (logs) or median (tensors) share "
+          f"of their change) + 2^-22 x their scale (worst {worst[0]:.3f} of its bound, "
+          f"{worst[1]}); "
+          f"skip decisions equal; K1 and K1-bwd launched {reps[0]['k1']} and "
+          f"{reps[0]['k1_bwd']} times on each rank")
+    for r, m in enumerate(ms):
+        print(f"[timing] DP-step rank {r}: K1 {m['K1']:.4f} ms and K1-bwd {m['K1-bwd']:.4f} ms of "
+              f"device time per step (box + cube pooler, b{batch_size // DP_RANKS}, 20 calls "
+              "queued behind a sleep kernel, one rank at a time)")
+    return {"k1": sum(r["k1"] for r in reps), "k1_bwd": sum(r["k1_bwd"] for r in reps),
+            "errs": {k: max(r["errs"][k] for r in reps) for k in ("K1", "K1-bwd")}
+            if all("errs" in r for r in reps) else {"K1": 0.0, "K1-bwd": 0.0},
+            "ms": ms, "worst": worst[0], "compared": n, "reference": ref}
+
+
+def nccl_in_trace(path: str, bn_sizes: set, steps: int) -> dict:
+    """From rank 0's torch.profiler chrome trace of `steps` training steps:
+    the NCCL kernels per step and their device ms, split by the message
+    each moved (In msg nelems of the collective's CPU op, found through the
+    kernel's launch on the host): BatchNorm statistics (2C + 1 elements),
+    gradient buckets (more than 1e5 elements), other (counts, logs), and
+    unattributed where the trace does not link them; the other kernels'
+    device ms per step against the kernels' span (the device's busy
+    share); K1's and K1-bwd's launches."""
+    with open(path) as f:
+        ev = json.load(f)["traceEvents"]
+    kernels = [e for e in ev if e.get("cat") == "kernel"]
+    launches = {e["args"].get("correlation"): e for e in ev
+                if e.get("cat", "").startswith("cuda_") and "args" in e}  # API calls
+    comms = [e for e in ev if e.get("cat") == "cpu_op" and "In msg nelems" in e.get("args", {})]
+    out = {k: [0, 0.0] for k in ("BatchNorm statistics", "gradient buckets", "other",
+                                 "unattributed")}
+    for k in kernels:
+        if "nccl" not in k["name"].lower():
+            continue
+        at = launches.get(k.get("args", {}).get("correlation"))
+        op = next((c for c in comms if at is not None and c["tid"] == at["tid"]
+                   and c["ts"] <= at["ts"] <= c["ts"] + c.get("dur", 0)), None)
+        n = int(op["args"]["In msg nelems"]) if op else None
+        kind = ("unattributed" if n is None else "BatchNorm statistics" if n in bn_sizes
+                else "gradient buckets" if n > 1e5 else "other")
+        out[kind][0] += 1
+        out[kind][1] += k.get("dur", 0) / 1e3
+    res = {k: {"per_step": c / steps, "ms_per_step": ms / steps} for k, (c, ms) in out.items()}
+    compute = [k for k in kernels if "nccl" not in k["name"].lower()]
+    if compute:
+        span = max(k["ts"] + k.get("dur", 0) for k in kernels) - min(k["ts"] for k in kernels)
+        res["busy_ms_per_step"] = sum(k.get("dur", 0) for k in compute) / 1e3 / steps
+        res["window_ms_per_step"] = span / 1e3 / steps
+    res["K1_launches"] = sum(1 for k in kernels if "roi_align_kernel" in k["name"])
+    res["K1_bwd_launches"] = sum(1 for k in kernels if "roi_align_bwd_kernel" in k["name"])
+    return res
+
+
+def dp_cli_phase(dev) -> dict:
+    """Phase 24 (DP-CLI), where at least 2 cards are visible: the train CLI
+    over W = 1, 2, 4, ... cards up to all of them, one process each over
+    NCCL (TPU.MESH_SHAPE [W], [-1] for all), the flagship at 25 images per
+    card (SOLVER.IMS_PER_BATCH 25 W) on 8 W synthetic scenes: 6 iterations
+    with a checkpoint at 4 (images/s, each rank's data and step ms), then
+    --resume to 8 under --profile (rank 0's NCCL kernels per step by kind,
+    K1 and K1-bwd in the trace); each rank's mapper ms (its 25 rows of a
+    global batch, one thread); at all cards, the eval CLI sharded over them
+    on that checkpoint. On one card it prints that it was not run."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from weakcube_tpu_torch.data.build import build_train_batches
+    from weakcube_tpu_torch.entry import dims_priors
+    from weakcube_tpu_torch.models.layers import BatchNorm2d
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.tools import eval_net, train_net
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[dp-cli] needs 2 or more cards; {cards} visible: not run")
+        return {}
+    cfg = dp_cfg()
+    model = build_model(cfg, dims_priors(cfg.MODEL.ROI_HEADS.NUM_CLASSES), device="cpu")
+    n_params = sum(p.numel() for p in model.parameters())
+    bn_sizes = {2 * m.num_features + 1 for m in model.modules() if isinstance(m, BatchNorm2d)}
+    n_bn = sum(isinstance(m, BatchNorm2d) for m in model.modules())
+    del model
+    worlds = sorted({w for w in (1, 2, 4, 8) if w < cards} | {cards})
+    print(f"[dp-cli] {cards} cards; W = {worlds}; {n_params} parameters, gradient bytes per "
+          f"step {4 * n_params} (float32); {n_bn} BatchNorm layers, each one all-reduce in the "
+          "forward and one in the backward")
+    rep = {}
+    for W in worlds:
+        out = tempfile.mkdtemp(prefix=f"chip_smoke_dp{W}_")
+        try:
+            base = ["--config-file", os.path.join(HERE, "configs", "Omni_combined.yaml"),
+                    "--synthetic", str(8 * W)]
+            opts = ["SOLVER.IMS_PER_BATCH", str(DP_CLI_PER_CARD * W), "SOLVER.CHECKPOINT_PERIOD",
+                    "4", "TEST.EVAL_PERIOD", "0", "VIS_PERIOD", "0", "TPU.MESH_SHAPE",
+                    "[-1]" if W == cards else f"[{W}]", "OUTPUT_DIR", out]
+            t = time.time()
+            state, hist = train_net.main(base + ["--max-iters", "6"] + opts)
+            wall = time.time() - t
+            bad = [(h["iteration"], k) for h in hist for k, v in h["logs"].items()
+                   if k != "Cube/IoU3D" and not math.isfinite(v)]
+            if state.step != 6 or bad:
+                fail(f"DP-CLI W={W}: step {state.step}, non-finite logs {bad[:6]}")
+            with open(os.path.join(out, "metrics.json")) as f:
+                lines = [json.loads(x) for x in f]
+            if [x["iteration"] for x in lines] != [6]:
+                fail(f"DP-CLI W={W}: metrics.json holds iterations "
+                     f"{[x['iteration'] for x in lines]}, expected [6] (rank 0 alone)")
+            timed = hist[1:]
+            secs = sum(h["data_time"] + h["step_time"] for h in timed)
+            ranks = [h.get("rank_times", [(h["data_time"], h["step_time"])]) for h in timed]
+            per_rank = [(1e3 * statistics.median(r[i][0] for r in ranks),
+                         1e3 * statistics.median(r[i][1] for r in ranks)) for i in range(W)]
+            ips = DP_CLI_PER_CARD * W * len(timed) / secs
+            state2, hist2 = train_net.main(base + ["--resume", "--profile", "--max-iters", "8"]
+                                           + opts)
+            if hist2[0]["iteration"] != 4 or state2.step != 8:
+                fail(f"DP-CLI W={W}: --resume started at {hist2[0]['iteration']}, ended at "
+                     f"{state2.step}, expected 4 and 8")
+            trace = os.path.join(out, "profile", "trace.json")
+            nccl = nccl_in_trace(trace, bn_sizes, 2) if os.path.exists(trace) else None
+            args = train_net.parse_args(base + ["--max-iters", "6"] + opts)
+            wcfg = train_net.setup(args)
+            records, loaders, _ = train_net.build_data(wcfg, args)
+            map_ms = []
+            for r in range(W):
+                it = build_train_batches(wcfg, records, loaders=loaders, rank=r, world=W)
+                next(it)  # renders the scenes
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    next(it)
+                map_ms.append((time.perf_counter() - t0) / 3 * 1e3)
+            rep[W] = {"images_per_s": ips, "per_rank_ms": per_rank, "wall_s": wall,
+                      "nccl": nccl, "mapper_ms": map_ms}
+            print(f"[dp-cli] W={W}: train_net --synthetic {8 * W} SOLVER.IMS_PER_BATCH "
+                  f"{DP_CLI_PER_CARD * W} TPU.MESH_SHAPE {opts[9]}: {wall:.1f} s; iterations 2-6 "
+                  f"{ips:.2f} images/s ({ips / W:.2f} per card); per rank median data / step ms "
+                  f"{', '.join(f'{d:.1f} / {s:.1f}' for d, s in per_rank)}; each rank's mapper "
+                  f"alone (its {DP_CLI_PER_CARD} rows, one thread) "
+                  f"{', '.join(f'{m:.1f}' for m in map_ms)} ms per batch")
+            if nccl is None:
+                print(f"[dp-cli] W={W}: no profiler trace: NCCL time not measured")
+            else:
+                ring = 2 * (W - 1) / W * 4 * n_params
+                print(f"[dp-cli] W={W}: rank 0's NCCL kernels per step (profiled iterations 6-7): "
+                      + "; ".join(f"{k} {v['per_step']:.1f} launches, {v['ms_per_step']:.3f} ms"
+                                  for k, v in nccl.items() if isinstance(v, dict))
+                      + f"; K1 {nccl['K1_launches']} and K1-bwd {nccl['K1_bwd_launches']} "
+                      f"launches in 2 steps; the gradients' ring all-reduce moves {ring:.4e} B "
+                      f"per card each way, {1e3 * ring / 450e9:.3f} ms at NVLink's 450 GB/s")
+                if "busy_ms_per_step" in nccl:
+                    busy, span = nccl["busy_ms_per_step"], nccl["window_ms_per_step"]
+                    print(f"[dp-cli] W={W}: rank 0's card busy with other kernels "
+                          f"{busy:.3f} ms per step of a {span:.3f} ms span per step (first to "
+                          f"last kernel of the 2 profiled steps): idle {100 * (1 - busy / span):.1f}%")
+            if W == cards:
+                res = eval_net.main(["--config-file", os.path.join(HERE, "configs",
+                                                                   "Omni_combined.yaml"),
+                                     "--synthetic", str(8 * W), "--eval-only", "TPU.MESH_SHAPE",
+                                     "[-1]", "OUTPUT_DIR", out])
+                tm = res["timing"]
+                if tm["images"] != 8 * W or tm["processes"] != W or \
+                        not all(math.isfinite(res[k]) for k in ("AP2D", "AP3D")):
+                    fail(f"DP-CLI eval over {W} cards: {tm['images']} images, "
+                         f"{tm['processes']} processes, AP2D {res['AP2D']}, AP3D {res['AP3D']}")
+                rep[W]["eval"] = tm
+                print(f"[dp-cli] eval_net over {W} cards on that checkpoint: {tm['images']} "
+                      f"images in {tm['batches']} global batches of {tm['batch_size']}, "
+                      f"{tm['images_per_s']:.2f} images/s end to end; AP2D {res['AP2D']:.4f}, "
+                      f"AP3D {res['AP3D']:.4f}")
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+    base_ips = rep[1]["images_per_s"]
+    print("[dp-cli] scaling: " + ", ".join(
+        f"W={W} {r['images_per_s']:.2f} images/s ({100 * r['images_per_s'] / (W * base_ips):.1f}% "
+        "of W x W=1's)" for W, r in rep.items()))
+    return rep
 
 
 def main() -> None:
@@ -1859,6 +2394,13 @@ def main() -> None:
     print(f"[phase] 11-13 (training step) took {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
 
+    # -- 23. DP-step: two ranks on this card against one process --------------
+    t = time.time()
+    dp = dp_step_phase(dev)
+    max_err["dp"] = dp["errs"]["K1"]
+    print(f"[phase] 23 (DP-step) took {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
+
     # -- 15.-22. the train CLI, the in-graph ground plane, IoU3D, RANSAC; the
     # eval CLI on the train CLI's checkpoint, K1 at its shapes, the evaluator
     # card vs CPU, periodic evaluation, vis and the demo ----------------------
@@ -1874,7 +2416,8 @@ def main() -> None:
                 ("19 (eval CLI)", lambda: eval_phase(dev, cli_out)),
                 ("20 (K1 at the eval batch's shapes)", lambda: eval_k1_phase(dev, cli_out)),
                 ("21 (evaluator, card vs CPU)", lambda: evaluator_phase(dev, rep["19"][1])),
-                ("22 (periodic eval, vis, demo)", lambda: periodic_phase(dev, cli_out))):
+                ("22 (periodic eval, vis, demo)", lambda: periodic_phase(dev, cli_out)),
+                ("24 (DP-CLI)", lambda: dp_cli_phase(dev))):
             t = time.time()
             rep[name.split()[0]] = phase()
             torch.cuda.empty_cache()
@@ -1892,14 +2435,21 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align (ROIAlignV2 fwd), box + cube pooler per forward",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": launches + ev["launches"],
+        "launches": launches + ev["launches"] + dp["k1"],
         "launches_by_path": {"detection forward (4 x b8)": launches,
-                             f"eval CLI ({ev['batches']} x b{EVAL_BATCH})": ev["launches"]},
+                             f"eval CLI ({ev['batches']} x b{EVAL_BATCH})": ev["launches"],
+                             f"DP-step ({DP_RANKS} ranks x {DP_STEPS} steps of "
+                             f"b{DP_BATCH // DP_RANKS})": dp["k1"]},
         "max_abs_err": max(max(max_err.values()), ev_k1["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": bound_by, "library_ms": tot["library_ms"],
         "eval_batch": {k: ev_k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms")}}, k1_bwd, k2]}))
+                                            "library_ms")}},
+        dict(k1_bwd, launches=k1_bwd["launches"] + dp["k1_bwd"],
+             launches_by_path={"training step (6 x b25)": k1_bwd["launches"],
+                               f"DP-step ({DP_RANKS} ranks x {DP_STEPS} steps of "
+                               f"b{DP_BATCH // DP_RANKS})": dp["k1_bwd"]},
+             max_abs_err=max(k1_bwd["max_abs_err"], dp["errs"]["K1-bwd"])), k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

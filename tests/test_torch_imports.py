@@ -34,7 +34,8 @@ def test_import_leaves_jax_out():
             "weakcube_tpu_torch.ops.roi_align_cuda, weakcube_tpu_torch.ops.flash_attention_cuda, "
             "weakcube_tpu_torch.data.generate_depth_maps, weakcube_tpu_torch.data.datasets, "
             "weakcube_tpu_torch.data.synthetic, weakcube_tpu_torch.solver, "
-            "weakcube_tpu_torch.parallel.train_step, weakcube_tpu_torch.ops.sampling, "
+            "weakcube_tpu_torch.parallel.train_step, weakcube_tpu_torch.parallel.distributed, "
+            "weakcube_tpu_torch.parallel.mesh, weakcube_tpu_torch.ops.sampling, "
             "weakcube_tpu_torch.ops.losses, weakcube_tpu_torch.ops.plane, "
             "weakcube_tpu_torch.ops.iou3d, weakcube_tpu_torch.data.mapper, "
             "weakcube_tpu_torch.data.build, weakcube_tpu_torch.data.builtin, "

@@ -30,7 +30,9 @@ alone (momentum, weight decay, the bias/norm groups, the schedule) is also
 held to optax's by replaying the same two gradients through both.
 test_torch_train_f32.py holds the float32 and bfloat16 steps at 128 px.
 Cube/IoU3D is compared on the first step; the port's train step computes it
-every 200th step only and reports NaN on the second.
+every 200th step only and reports NaN on the second. The same two steps
+over two data-parallel gloo ranks of B = 1 (spawned, torch only) are held
+to the port's one-process steps and to JAX's (test_data_parallel_*).
 """
 
 import copy
@@ -43,6 +45,7 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
+import torch_parallel_check as pc
 from weakcube_tpu.models import rcnn3d as j_rcnn3d
 from weakcube_tpu.models import roi_heads as j_roi_heads
 from weakcube_tpu.solver.build import _param_labels, build_optimizer as j_build_optimizer
@@ -50,6 +53,7 @@ from weakcube_tpu_torch.entry import dims_priors, tiny_batch, tiny_cfg
 from weakcube_tpu_torch.models import roi_heads as t_roi_heads
 from weakcube_tpu_torch.models import rpn as t_rpn
 from weakcube_tpu_torch.models.rcnn3d import build_model as t_build_model
+from weakcube_tpu_torch.parallel import distributed
 from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
 from weakcube_tpu_torch.solver.build import GROUPS, param_label
 from weakcube_tpu_torch.structures import SampledRois
@@ -184,10 +188,12 @@ def port_steps(v, batch_j, rois, dtype, steps, size=SIZE):
 def runs():
     """Two whole float64 steps of each package; beside them the port's
     second step from JAX's parameters after the first (the port's own
-    momentum, schedule and running statistics)."""
+    momentum, schedule and running statistics), and the port's two steps
+    with float64 parameters (the data-parallel steps' reference)."""
     with jax.enable_x64():
         v, batch, (j64, j64_2) = jax_steps(jnp.float64, 2, size=SIZE_F64)
     tm, opt, state, tbatch = port_setup(v, batch, torch.float64, SIZE_F64)
+    tm_d, opt_d, state_d = copy.deepcopy((tm, opt, state))
     state, t64 = port_step(tm, opt, state, tbatch, j64["rois"])
     tm_j, opt_j, state_j = copy.deepcopy((tm, opt, state))
     with torch.no_grad():
@@ -195,8 +201,33 @@ def runs():
             tm_j.get_parameter(name).copy_(p)
     state, t64_2 = port_step(tm, opt, state, tbatch, j64_2["rois"])
     _, t64_2j = port_step(tm_j, opt_j, state_j, tbatch, j64_2["rois"])
+    tm_d.double()
+    opt_d = create_train_state(with_solver(tiny_cfg(SIZE_F64, NCLS, dla=True)), tm_d)[1]
+    t64d = []
+    for r in (j64["rois"], j64_2["rois"]):
+        state_d, rec = port_step(tm_d, opt_d, state_d, tbatch, r)
+        t64d.append(dict(rec, state=state_d))
     return dict(v=v, j64=j64, t64=t64, j64_2=j64_2, t64_2=t64_2, t64_2j=t64_2j, tm=tm,
-                state=state)
+                state=state, batch=batch, t64d=t64d)
+
+
+@pytest.fixture(scope="module")
+def dp(runs, tmp_path_factory):
+    """The two float64 steps over 2 gloo ranks of B = 1 (spawned processes
+    that import torch and the port only: tests/torch_parallel_check.py::
+    train_steps), on the fixture's weights, with float64 parameters, each
+    rank on its row of the batch, of JAX's anchor labels and of each
+    step's RoIs. Returns rank 0's steps and what the ranks reported."""
+    path = tmp_path_factory.mktemp("dp") / "steps.pt"
+    lab = runs["batch"]["rpn_labels"]
+    torch.save(dict(cfg=with_solver(tiny_cfg(SIZE_F64, NCLS, dla=True)), B=B, size=SIZE_F64,
+                    state_dict=flax_to_torch(runs["v"]["params"], runs["v"]["batch_stats"]),
+                    rpn_labels=[np.array(x) for x in (lab.labels, lab.matched_boxes,
+                                                      lab.matched_ious)],
+                    rois=[[np.array(x) for x in runs[k]["rois"]] for k in ("j64", "j64_2")],
+                    out=str(path) + ".out"), path)
+    report = distributed.launch(pc.train_steps, 2, (str(path),), device_type="cpu")
+    return torch.load(str(path) + ".out", weights_only=False), report
 
 
 def as_np(x):
@@ -294,6 +325,45 @@ def test_second_step_from_jax_parameters_f64(runs):
     check_logs(runs["j64_2"], runs["t64_2j"], tick=False)
     check_gradients(runs["j64_2"], runs["t64_2j"])
     check_state(runs["j64_2"], runs["t64_2j"])
+
+
+def test_data_parallel_steps_equal_one_process_f64(runs, dp):
+    """Two ranks of B = 1 take the one-process steps on B = 2: every loss
+    and metric, the skip decision and TrainState, and every parameter and
+    BatchNorm statistic after each of the two steps, to 1e-10 of each
+    tensor's scale (parameters float64 on both sides, so that the only
+    difference is the order of float64 sums: the BatchNorm statistics, the
+    loss numerators and the gradients, each split in two and added); the
+    replicas hold the same bits after each step; the ranks imported no
+    JAX."""
+    steps, report = dp
+    assert report["world"] == 2 and report["replicas_equal"] == [True, True]
+    assert report["imported"] == [[], []]
+    for i, (got, want) in enumerate(zip(steps, runs["t64d"])):
+        a, b = got["state"], want["state"]
+        assert (a.step, a.applied, a.skipped, a.ema_init) == (b.step, b.applied, b.skipped,
+                                                              b.ema_init), f"step {i}"
+        check(np.float64(a.loss_ema), np.float64(b.loss_ema), 1e-10, f"step {i} loss_ema")
+        assert set(got["logs"]) == set(want["logs"])
+        for k, w in want["logs"].items():
+            if math.isnan(w):
+                assert math.isnan(got["logs"][k]), k
+            else:
+                check(np.float64(got["logs"][k]), np.float64(w), 1e-10, f"step {i} {k}")
+        for name, w in want["state_dict"].items():
+            check(got["state_dict"][name], w, 1e-10, f"step {i} {name}")
+
+
+def test_data_parallel_steps_match_jax_f64(runs, dp):
+    """The two ranks' steps against JAX's float64 steps, with the
+    tolerances of the one-process port's (test_losses_and_metrics_f64,
+    test_state_after_the_step_f64, test_second_step_f64)."""
+    steps, _ = dp
+    first, second = ({"logs": s["logs"], "state_dict": s["state_dict"]} for s in steps)
+    check_logs(runs["j64"], first)
+    check_state(runs["j64"], first)
+    check_logs(runs["j64_2"], second, near=runs["t64_2j"], tick=False)
+    check_state(runs["j64_2"], second, near=runs["t64_2j"])
 
 
 def test_update_of_two_steps(runs):

@@ -104,15 +104,25 @@ def _map(mapper, record, loaders, rng=None):
                   ground_map=loaders["ground"](record) if "ground" in loaders else None)
 
 
+def _rows(n: int, rank: int, world: int) -> slice:
+    """Rank `rank`'s rows of a global batch of n."""
+    if n % world:
+        raise ValueError(f"a global batch of {n} does not divide over {world} ranks")
+    return slice(rank * (n // world), (rank + 1) * (n // world))
+
+
 def build_train_batches(cfg, records: Sequence[Dict],
                         batch_size: Optional[int] = None,
                         seed: int = 0,
-                        loaders: Optional[Dict] = None) -> Iterator[Dict]:
+                        loaders: Optional[Dict] = None,
+                        rank: int = 0, world: int = 1) -> Iterator[Dict]:
     """Infinite iterator of dense train batches (numpy).
 
     loaders: optional dict of callables {image, depth, ground}(record) ->
     numpy array, so that callers can plug npz pseudo-GT artefacts or
     synthetic renderers in without the mapper knowing the storage format.
+    batch_size: the global batch (default SOLVER.IMS_PER_BATCH).
+    rank, world: a data-parallel rank's rows of every global batch (below).
     """
     mapper = DatasetMapper3D(cfg, is_train=True)
     rng = np.random.default_rng(seed)
@@ -129,42 +139,64 @@ def build_train_batches(cfg, records: Sequence[Dict],
     # per-bucket accumulation (d2 AspectRatioGroupedDataset, reference
     # data/build.py:76-155): a batch is emitted when one canvas bucket
     # fills, so every batch has one shape
-    pools: Dict[tuple, List[Dict]] = {}
+    if world == 1:
+        pools: Dict[tuple, List[Dict]] = {}
+        while True:
+            idx = rng.choice(len(records), size=bs, p=probs)
+            for i in idx:
+                ex = _map(mapper, records[i], loaders, rng)
+                pool = pools.setdefault(ex["bucket"], [])
+                pool.append(ex)
+                if len(pool) == bs:
+                    yield pad_batch(pool)
+                    pools[ex["bucket"]] = []
+    # data parallel: every rank runs the same sampler over the records and
+    # groups them by the bucket of their size, so all ranks see the same
+    # global batches, and maps its own rows alone. The draws of the mapper
+    # (scale jitter, flip) cannot then come from the sampler's generator
+    # as above: each example draws from one seeded from (seed, its position
+    # in the sampled sequence), so a global batch is the same at any W > 1
+    rows = _rows(bs, rank, world)
+    pools, pos = {}, 0
     while True:
         idx = rng.choice(len(records), size=bs, p=probs)
         for i in idx:
-            ex = _map(mapper, records[i], loaders, rng)
-            pool = pools.setdefault(ex["bucket"], [])
-            pool.append(ex)
+            pool = pools.setdefault(mapper.bucket(records[i])[0], [])
+            pool.append((i, pos))
+            pos += 1
             if len(pool) == bs:
-                yield pad_batch(pool)
-                pools[ex["bucket"]] = []
+                yield pad_batch([_map(mapper, records[j], loaders, np.random.default_rng([seed, p]))
+                                 for j, p in pool[rows]])
+                pool.clear()
 
 
 def build_test_batches(cfg, records: Sequence[Dict],
                        batch_size: int = 8,
-                       loaders: Optional[Dict] = None) -> Iterator[Dict]:
+                       loaders: Optional[Dict] = None,
+                       rank: int = 0, world: int = 1) -> Iterator[Dict]:
     """Finite iterator over the dataset (the last batch of each bucket padded
     by repetition; consumers dedupe by image_id). With aspect buckets the
-    records are grouped by canvas shape, so each batch has one shape."""
+    records are grouped by canvas shape, so each batch has one shape.
+    rank, world: a data-parallel rank's rows of every global batch of
+    batch_size (which must divide over the ranks); every rank yields as
+    many batches."""
     mapper = DatasetMapper3D(cfg, is_train=False)
     loaders = loaders or {}
-    pools: Dict[tuple, List[Dict]] = {}
-    order: List[tuple] = []
-    for r in records:
-        ex = _map(mapper, r, loaders)
-        pool = pools.setdefault(ex["bucket"], [])
-        if ex["bucket"] not in order:
-            order.append(ex["bucket"])
-        pool.append(ex)
+    rows = _rows(batch_size, rank, world)
+
+    def batch(idx):
+        return pad_batch([_map(mapper, records[i], loaders) for i in idx[rows]])
+
+    pools: Dict[tuple, List[int]] = {}
+    for i, r in enumerate(records):
+        pool = pools.setdefault(mapper.bucket(r)[0], [])
+        pool.append(i)
         if len(pool) == batch_size:
-            yield pad_batch(pool)
-            pools[ex["bucket"]] = []
-    for b in order:
-        tail = pools.get(b) or []
+            yield batch(pool)
+            pool.clear()
+    for tail in pools.values():  # in the order the buckets first appeared
         if tail:
-            tail = tail + [tail[-1]] * (batch_size - len(tail))
-            yield pad_batch(tail)
+            yield batch(tail + [tail[-1]] * (batch_size - len(tail)))
 
 
 class _Raised:

@@ -76,19 +76,24 @@ class DatasetMapper3D:
             getattr(cfg.TPU, "CACHE_GROUND_NORMALS", True))
         self._normal_cache: Dict = {}
 
+    def bucket(self, record: Dict) -> Tuple[Tuple[int, int], float]:
+        """The record's canvas (H, W) and the scale that fits it there: the
+        canvas whose fit-scale preserves the most content resolution (ties
+        break toward the smaller canvas area). It depends on the record's
+        width and height alone."""
+        W0, H0 = record["width"], record["height"]
+        fit = [min(bh / H0, bw / W0) for bh, bw in self.buckets]
+        bi = int(np.argmax([min(f, 1.0) - 1e-9 * (bh * bw)
+                            for f, (bh, bw) in zip(fit, self.buckets)]))
+        return self.buckets[bi], fit[bi]
+
     def __call__(self, record: Dict, rng: Optional[np.random.Generator] = None,
                  image: Optional[np.ndarray] = None,
                  depth_map: Optional[np.ndarray] = None,
                  ground_map: Optional[np.ndarray] = None) -> Dict:
         rng = rng or np.random.default_rng(0)
         W0, H0 = record["width"], record["height"]
-        # bucket choice: the canvas whose fit-scale preserves the most
-        # content resolution (ties break toward the smaller canvas area)
-        fit = [min(bh / H0, bw / W0) for bh, bw in self.buckets]
-        bi = int(np.argmax([min(f, 1.0) - 1e-9 * (bh * bw)
-                            for f, (bh, bw) in zip(fit, self.buckets)]))
-        SH, SW = self.buckets[bi]
-        scale = fit[bi]
+        (SH, SW), scale = self.bucket(record)
         if self.is_train and len(self.min_sizes) > 1:
             # scale jitter: target a random min-side, clamped into the canvas
             target_min = float(self.min_sizes[rng.integers(len(self.min_sizes))])

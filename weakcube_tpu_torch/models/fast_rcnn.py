@@ -10,6 +10,7 @@ import torch.nn as nn
 from ..ops import boxes as box_ops
 from ..ops import losses as loss_ops
 from ..ops import nms as nms_ops
+from ..parallel.mesh import global_sum
 from ..structures import Detections, Proposals, SampledRois
 from .layers import Linear
 
@@ -57,7 +58,8 @@ def fast_rcnn_losses(scores: torch.Tensor, deltas: torch.Tensor, rois: SampledRo
     d_fg = torch.gather(d, 2, cls[..., None, None].expand(B, S, 1, 4))[:, :, 0]
     gt_d = box_ops.get_deltas(rois.boxes, gt_boxes_matched, box_reg_weights)
     reg = box_ops.smooth_l1(d_fg, gt_d, smooth_l1_beta).sum(-1)
-    loss_reg = torch.where(fg, reg, torch.zeros_like(reg)).sum() / valid.sum().clamp(min=1)
+    loss_reg = torch.where(fg, reg, torch.zeros_like(reg)).sum() \
+        / global_sum(valid.sum().detach()).clamp(min=1)
     return {"BoxHead/loss_cls": loss_cls, "BoxHead/loss_box_reg": loss_reg}
 
 

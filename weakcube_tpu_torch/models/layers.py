@@ -16,13 +16,18 @@ biased variance (PyTorch's own training batch_norm records the unbiased
 one), but keeps them aside in `pending`:
 `apply_batch_stats(model)` writes them into the running buffers, which the
 train step does only when it applies the update (flax's mutable
-batch_stats, returned and kept or dropped by the step).
+batch_stats, returned and kept or dropped by the step). In a data-parallel
+run the training statistics are those of the global batch, as under the
+JAX package's sharding: every rank normalises with them and records them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import distributed
+from ..parallel.mesh import global_sum
 
 
 class Conv2d(nn.Conv2d):
@@ -50,14 +55,24 @@ class BatchNorm2d(nn.BatchNorm2d):
                              self.weight.to(x32.dtype), self.bias.to(x32.dtype), False, 0.0,
                              self.eps)
             return y.to(x.dtype)
-        mean = x32.mean((0, 2, 3))
-        var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+        if distributed.process_count() == 1:
+            mean, mean_sq = x32.mean((0, 2, 3)), (x32 * x32).mean((0, 2, 3))
+        else:
+            # the global batch's statistics: one all-reduce of (sum x, sum
+            # x^2, n), differentiable, so every rank's inputs get the
+            # gradient through the statistics of the others' rows too
+            C = x32.shape[1]
+            s = global_sum(torch.cat([x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)),
+                                      x32.new_full((1,), x32.numel() // C)]))
+            mean, mean_sq = s[:C] / s[-1], s[C:2 * C] / s[-1]
+        var = (mean_sq - mean * mean).clamp(min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         with torch.no_grad():
             m = self.momentum
-            self.pending = ((1 - m) * self.running_mean + m * mean.float(),
-                            (1 - m) * self.running_var + m * var.float())
+            dt = self.running_mean.dtype
+            self.pending = ((1 - m) * self.running_mean + m * mean.to(dt),
+                            (1 - m) * self.running_var + m * var.to(dt))
         return y.to(x.dtype)
 
 

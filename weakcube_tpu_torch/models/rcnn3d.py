@@ -40,11 +40,14 @@ def register_meta_arch(name):
 
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller asks for the CPU: with no device given
-    this is `cuda`, and it raises where there is no GPU."""
+    this is the current card (a data-parallel rank's own), and it raises
+    where there is no GPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to run "
                            "on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -36,6 +36,7 @@ from ..ops import plane as plane_ops
 from ..ops import roi_align_cuda
 from ..ops import rotations
 from ..ops import sampling
+from ..parallel.mesh import global_rows, global_sum
 from ..structures import Detections, GroundTruth, Proposals, SampledRois, match_boxes
 from .cube_head import CubeHead
 from .fast_rcnn import (FastRCNNConvFCHead, FastRCNNPredictor, fast_rcnn_inference,
@@ -248,14 +249,16 @@ def iou_projection_loss(gt_boxes, proj_boxes):
 def pose_alignment_loss(pose, fg):
     """Pose consistency within an image: the mean over fg pairs of
     1 - |cos relative angle|, averaged over the images with a pair.
-    Returns (scalar, whether any image has a pair)."""
+    Returns (scalar, whether any image has a pair), both of the global
+    batch in a data-parallel run: the loss multiplies a per-RoI weight
+    before its mean, so each rank needs the whole value, not a share."""
     vals, pmask = rotations.so3_relative_angle_pairs(pose, fg, cos_angle=True)
     n_pairs = pmask.sum((-1, -2))
     sums = torch.where(pmask, 1.0 - torch.abs(vals), torch.zeros_like(vals)).sum((-1, -2))
     per_image = sums / n_pairs.clamp(min=1)
     has = n_pairs > 0
-    n_img = has.sum()
-    total = torch.where(has, per_image, torch.zeros_like(per_image)).sum()
+    n_img = global_sum(has.sum().detach())
+    total = global_sum(torch.where(has, per_image, torch.zeros_like(per_image)).sum())
     return total / n_img.clamp(min=1), n_img > 0
 
 
@@ -491,7 +494,7 @@ class ROIHeads3DScore(ROIHeadsCommon):
             cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT)
         losses, _, _, _ = self.forward_box_train(features, rois, gt)
         all_fg = rois.fg & rois.valid
-        B = all_fg.shape[0]
+        B = global_rows(all_fg.shape)[0]  # the per-image counts are over the global batch
         if rc.LOSS_W_3D == 0:  # 2D-only training: no cube branch
             return losses, {"roi_head/num_fg_samples": all_fg.sum() / B}
         num_bg = (rois.valid & ~rois.fg).sum() / B
@@ -499,7 +502,7 @@ class ROIHeads3DScore(ROIHeadsCommon):
         fg = rois.fg & rois.valid
         dec = self.run_cube_head(features, rois.boxes, rois.classes, K)
         gt_boxes_m = gather_gt(gt.boxes, rois.gt_idx)
-        proj_boxes = dec.cubes.to_boxes(K[:, None], image_wh.expand(B, 2)[:, None])
+        proj_boxes = dec.cubes.to_boxes(K[:, None], image_wh.expand(fg.shape[0], 2)[:, None])
 
         per_box: Dict[str, torch.Tensor] = {}
         scalar: Dict[str, torch.Tensor] = {}

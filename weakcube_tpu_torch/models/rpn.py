@@ -5,7 +5,8 @@ Training: `label_and_sample_anchors` matches anchors to GT, forces each
 GT's best anchor positive, subsamples positives and negatives by IoU-
 weighted Gumbel top-k and marks anchors under ignore regions;
 `rpn_losses` is the IoUness objectness (BCE toward the matched IoU) and
-IoU-weighted L1 box regression, both over BATCH_SIZE_PER_IMAGE * B.
+IoU-weighted L1 box regression, both over BATCH_SIZE_PER_IMAGE * B (B of
+the global batch in a data-parallel run).
 
 Proposal selection is detectron2's find_top_rpn_proposals with static
 shapes: per level, exact top-k by objectness -> decode -> clip -> NMS within
@@ -23,6 +24,7 @@ from ..ops import boxes as box_ops
 from ..ops import losses as loss_ops
 from ..ops import nms as nms_ops
 from ..ops import sampling
+from ..parallel.mesh import global_rows
 from ..structures import GroundTruth, Proposals, match_boxes
 from .layers import Conv2d
 
@@ -154,5 +156,5 @@ def rpn_losses(anchors: torch.Tensor, logits: torch.Tensor, deltas: torch.Tensor
     gt_deltas = box_ops.get_deltas(a, lab.matched_boxes, box_reg_weights)
     reg = box_ops.smooth_l1(deltas, gt_deltas, smooth_l1_beta).sum(-1)
     loss_reg = torch.where(fg, reg * iou_t, torch.zeros_like(iou_t)).sum()
-    normalizer = batch_size_per_image * B
+    normalizer = batch_size_per_image * global_rows((B,))[0]
     return {"rpn/cls": loss_conf / normalizer, "rpn/loc": loss_reg / normalizer}

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import global_rows, local_rows
+
 
 def ransac_plane(pts: torch.Tensor, valid: Optional[torch.Tensor] = None,
                  thresh: float = 0.05, num_hypotheses: int = 1000,
@@ -25,7 +27,8 @@ def ransac_plane(pts: torch.Tensor, valid: Optional[torch.Tensor] = None,
                  draws: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fit a plane to each masked point cloud of a batch by RANSAC.
 
-    pts: (..., N, 3); valid: (..., N) bool (default all valid): invalid
+    pts: (..., N, 3), in a data-parallel run (B, N, 3) with this rank's B
+    images; valid: (..., N) bool (default all valid): invalid
     points are never drawn and never count as inliers. Each hypothesis draws
     3 indices in [0, N) with replacement (`draws`, (..., H, 3) or (H, 3),
     replaces the draw), taken modulo the valid count into the valid points
@@ -40,8 +43,9 @@ def ransac_plane(pts: torch.Tensor, valid: Optional[torch.Tensor] = None,
     if valid is None:
         valid = torch.ones(pts.shape[:-1], dtype=torch.bool, device=pts.device)
     if draws is None:
-        draws = torch.randint(0, n, (*batch, num_hypotheses, 3), generator=generator,
-                              device=pts.device)
+        # the global batch's draws, this rank's rows (ops/sampling.py::gumbel)
+        draws = local_rows(torch.randint(0, n, global_rows((*batch, num_hypotheses, 3)),
+                                         generator=generator, device=pts.device))
     draws = draws.to(pts.device).expand(*batch, *draws.shape[-2:])
     H = draws.shape[-2]
     order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)  # valid first

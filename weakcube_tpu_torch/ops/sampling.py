@@ -13,12 +13,18 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import global_rows, local_rows
+
 _NEG = -1e10
 
 
 def gumbel(shape, generator: torch.Generator, device=None) -> torch.Tensor:
-    """Standard Gumbel noise -log(-log(u)), u uniform in (0, 1)."""
-    u = torch.rand(shape, generator=generator, device=device or generator.device)
+    """Standard Gumbel noise -log(-log(u)), u uniform in (0, 1), of a
+    (B, ...) shape. In a data-parallel run every rank draws the global
+    batch's noise from the same generator state and keeps its own rows: the
+    ranks' samples are those of one process on the global batch."""
+    u = local_rows(torch.rand(global_rows(shape), generator=generator,
+                              device=device or generator.device))
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 

@@ -13,6 +13,12 @@ A checkpoint is one `torch.save` of plain containers, loaded with
   * "train_state": the TrainState's fields.
 A released detectron2 `.pth` is not loaded yet: its fc1 input columns need
 the (C, 7, 7) -> (7, 7, C) permutation (ROADMAP.md, Queue C).
+
+In a data-parallel run rank 0 alone writes, and every rank waits at a
+barrier after each save, so that all of them can then load it (OUTPUT_DIR
+is shared by the ranks). The ranks hold plain models, not wrapped ones: a
+checkpoint of W ranks has one process's keys and loads into one process
+and into the eval CLI.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import os
 import torch
 import torch.nn as nn
 
+from ..parallel import distributed
 from ..parallel.train_step import TrainState
 
 SUFFIX = ".pt"
@@ -52,12 +59,15 @@ class PeriodicCheckpointerOnlyOne:
         return os.path.join(self.output_dir, name + SUFFIX)
 
     def save(self, name: str, model: nn.Module, optimizer, state: TrainState) -> None:
-        ckpt = {"model": model.state_dict(),
-                "optimizer": {**optimizer.state_dict(), "schedule_count": optimizer.count},
-                "train_state": dataclasses.asdict(state)}
-        tmp = self.path(name) + ".tmp"
-        torch.save(ckpt, tmp)
-        os.replace(tmp, self.path(name))  # a reader never sees half a file
+        """Write checkpoint `name` (rank 0) and wait until it is written."""
+        if distributed.is_main_process():
+            ckpt = {"model": model.state_dict(),
+                    "optimizer": {**optimizer.state_dict(), "schedule_count": optimizer.count},
+                    "train_state": dataclasses.asdict(state)}
+            tmp = self.path(name) + ".tmp"
+            torch.save(ckpt, tmp)
+            os.replace(tmp, self.path(name))  # a reader never sees half a file
+        distributed.barrier()
 
     def step(self, iteration: int, model, optimizer, state: TrainState) -> None:
         if (iteration + 1) % self.period == 0:

@@ -11,7 +11,9 @@ evaluates MODEL.WEIGHTS, else OUTPUT_DIR's model_final.pt or
 model_recent.pt, else (with a warning) the random init, on the records of
 cfg.DATASETS.TEST or on N rendered scenes, on the card unless
 `--device cpu` is given, and prints the AP tables. `--eval-vis N` saves the
-first N images' detections as JPEGs in OUTPUT_DIR/eval_vis.
+first N images' detections as JPEGs in OUTPUT_DIR/eval_vis. With
+TPU.MESH_SHAPE asking for several processes (tools/train_net.py) the
+inference is sharded over them, as the JAX CLI shards it over its devices.
 """
 from __future__ import annotations
 
@@ -137,6 +139,13 @@ def do_test(cfg, args, records, loaders, model=None, state_dict=None, proximity:
       MODEL.WEIGHTS or OUTPUT_DIR.
     device: the card unless 'cpu' is given (default args.device; a given
       model's own device).
+    Data parallel (every rank calls do_test): the global batch is
+    batch_size rounded up to a multiple of the ranks, as the JAX CLI
+    rounds it to its devices, and each rank runs inference (K1 on its card)
+    on its rows of every global batch. The records go to rank 0 over the
+    gloo group (NCCL has no object gather), where the evaluator and the AP
+    tables run; every rank returns rank 0's results. The timing is rank
+    0's, over the global images.
     Returns the evaluator's results (AP2D, AP3D, AP3D@15/25/50, the band
     APs, per class) and "timing": images, seconds, images/s, the steady
     state and the medians per batch of data, inference and record ms, and
@@ -146,6 +155,7 @@ def do_test(cfg, args, records, loaders, model=None, state_dict=None, proximity:
     from ..evaluation import Omni3DEvaluationHelper, Omni3DEvaluator
     from ..models.priors import compute_priors
     from ..models.rcnn3d import build_model, resolve_device
+    from ..parallel import distributed
     from ..vis.logperf import (print_ap_analysis_histogram, print_ap_category_histogram,
                                print_ap_dataset_histogram, print_ap_omni_histogram,
                                print_ap_table, print_dataset_analysis_histogram)
@@ -153,6 +163,9 @@ def do_test(cfg, args, records, loaders, model=None, state_dict=None, proximity:
     num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
     if batch_size is None:
         batch_size = int(cfg.TEST.IMS_PER_BATCH)
+    world, rank = distributed.process_count(), distributed.rank()
+    batch_size = -(-batch_size // world) * world
+    main_rank = rank == 0
     if model is not None:
         dev = next(model.parameters()).device
     else:
@@ -181,10 +194,12 @@ def do_test(cfg, args, records, loaders, model=None, state_dict=None, proximity:
         def add_record(rec):
             return evaluator.add(rec, gt_recs[rec["image_id"]])
 
-    vis_budget = int(getattr(args, "eval_vis", 0) or 0)
+    vis_budget = int(getattr(args, "eval_vis", 0) or 0) if main_rank else 0
+    others = []  # a rank > 0's records, sent to rank 0 at the end
     # two pipeline stages ahead of the model: the mapper, and the pinned copy
     # of the model's inputs (the inference reads image, image_wh and K only)
-    batches = prefetch(build_test_batches(cfg, records, batch_size=batch_size, loaders=loaders))
+    batches = prefetch(build_test_batches(cfg, records, batch_size=batch_size, loaders=loaders,
+                                          rank=rank, world=world))
     dev_batches = prefetch((to_device({k: b[k] for k in ("image", "image_wh", "K")}, dev), b)
                            for b in batches)
     was_training = model.training
@@ -209,7 +224,9 @@ def do_test(cfg, args, records, loaders, model=None, state_dict=None, proximity:
                     vis_budget = _dump_eval_vis(cfg, fetched, batch, vis_budget)
                 for rec in detections_to_records(fetched, batch, cfg.TEST.DETECTIONS_PER_IMAGE):
                     # a tail batch repeats its last image; add() drops it
-                    if rec["image_id"] in gt_recs and add_record(rec):
+                    if not main_rank:
+                        others.append(rec)
+                    elif rec["image_id"] in gt_recs and add_record(rec):
                         n_img += 1
                 shape = tuple(batch["image"].shape)
                 per_batch.append((t_data, t_inf, time.perf_counter() - t, shape in shapes_seen))
@@ -217,7 +234,13 @@ def do_test(cfg, args, records, loaders, model=None, state_dict=None, proximity:
     finally:
         dev_batches.close()
         model.train(was_training)
+    gathered = distributed.gather_objects(others)
+    for rec in (r for recs in gathered or [] for r in recs):
+        if rec["image_id"] in gt_recs and add_record(rec):
+            n_img += 1
     dt = time.time() - t0
+    if not main_rank:
+        return distributed.broadcast_object(None)
     logger.info("inference on %d images in %.1fs (%.2f img/s)", n_img, dt, n_img / max(dt, 1e-9))
     # the steady state leaves out the first batch of each shape (cuDNN's
     # algorithm search, allocator growth)
@@ -262,8 +285,9 @@ def do_test(cfg, args, records, loaders, model=None, state_dict=None, proximity:
         "steady_batches": len(steady), "batch_ms": 1e3 * batch_s, "data_ms": 1e3 * med["data"],
         "inference_ms": 1e3 * med["inference"], "records_ms": 1e3 * med["records"],
         "first_batch_ms": [1e3 * sum(b[:3]) for b in per_batch if not b[3]],
-        "evaluator_s": eval_s, "evaluator_ms_per_image": 1e3 * eval_s / max(n_img, 1)}
-    return results
+        "evaluator_s": eval_s, "evaluator_ms_per_image": 1e3 * eval_s / max(n_img, 1),
+        "processes": world}
+    return distributed.broadcast_object(results)
 
 
 def main(argv=None):

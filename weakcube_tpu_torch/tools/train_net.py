@@ -1,13 +1,23 @@
 """Training entry point (tools/train_net.py of the JAX package), on one
-device.
+card or data-parallel over several.
 
     python -m weakcube_tpu_torch.tools.train_net --config-file configs/Omni_combined.yaml \
         [--eval-only] [--eval-vis N] [--resume] [--max-iters N] [--synthetic N] \
         [--device cpu] [--profile] OPT1 VAL1 OPT2 VAL2 ...
 
-Runs on the card unless `--device cpu` is given. Trains on the registered
-datasets of cfg.DATASETS.TRAIN, or on N procedurally rendered scenes
-(`--synthetic N`), with the stabilised train step; logs every 20
+Runs on the card unless `--device cpu` is given. TPU.MESH_SHAPE [n] runs n
+data-parallel processes (parallel/distributed.py): [-1], the default, is
+every visible card (one process on the CPU); `--device cpu
+TPU.MESH_SHAPE [2]` runs two gloo processes. SOLVER.IMS_PER_BATCH is the
+global batch and must divide over them (it raises otherwise); each rank
+maps and trains on its rows, and the step is that of one process on the
+global batch (parallel/train_step.py). Rank 0 alone writes the logs,
+metrics.json, checkpoints and JPEGs; the evaluations are sharded. Several
+hosts: the WEAKCUBE_* variables of parallel/distributed.py.
+
+Trains on the registered datasets of cfg.DATASETS.TRAIN, or on N
+procedurally rendered scenes (`--synthetic N`), with the stabilised train
+step; logs every 20
 iterations (console and OUTPUT_DIR/metrics.json), keeps one rolling
 checkpoint (model_recent, every SOLVER.CHECKPOINT_PERIOD steps) and
 model_final, and restarts from model_recent when the share of skipped
@@ -30,6 +40,7 @@ import dataclasses
 import logging
 import math
 import os
+import sys
 import time
 from functools import lru_cache
 
@@ -43,6 +54,7 @@ logger = logging.getLogger("weakcube_tpu_torch")
 TICK_GATED_METRICS = ("Cube/IoU3D",)
 MAX_TRAINING_ATTEMPTS = 10  # reference train_net.py:62
 LOG_PERIOD = 20
+PROFILE_FIRST, PROFILE_STEPS = 2, 10  # --profile's window, after the run's first iteration
 
 
 def parse_args(argv=None):
@@ -60,8 +72,9 @@ def parse_args(argv=None):
                    help="train on N procedurally generated scenes instead of "
                         "the registered datasets")
     p.add_argument("--profile", action="store_true",
-                   help="write a torch.profiler trace of iterations 10-20 to "
-                        "OUTPUT_DIR/profile")
+                   help=f"write a torch.profiler trace of {PROFILE_STEPS} iterations from the "
+                        f"run's {PROFILE_FIRST + 1}th (or to its end) to "
+                        "OUTPUT_DIR/profile/trace.json (rank 0's)")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: cuda; 'cpu' for the CPU)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
@@ -138,6 +151,14 @@ def build_data(cfg, args, split: str = "train"):
     return records, loaders, cfg.MODEL.ROI_HEADS.NUM_CLASSES
 
 
+def check_batch_divides(cfg, world: int) -> None:
+    """Refuse a global batch that does not divide over the processes, as
+    detectron2 and the JAX package's sharding do: the batch is not rounded."""
+    if cfg.SOLVER.IMS_PER_BATCH % world:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} does not divide over "
+                         f"{world} data-parallel processes")
+
+
 def step_generator(seed: int, it: int, device) -> torch.Generator:
     """The generator of iteration `it`: seeded from (seed, it) alone."""
     s = int(np.random.SeedSequence([seed, it]).generate_state(1, np.uint64)[0])
@@ -145,13 +166,18 @@ def step_generator(seed: int, it: int, device) -> torch.Generator:
 
 
 def do_train(cfg, args, records, loaders, num_classes):
-    """Train from cfg (and args.resume / args.profile / args.device).
-    Returns (state, history): the final TrainState and one dict per
-    iteration (iteration, attempt, data_time and step_time in seconds, the
-    step's logs, and "eval", do_test's results, after an evaluation)."""
+    """Train from cfg (and args.resume / args.profile / args.device), as one
+    rank of a data-parallel run or alone. Returns (state, history): the
+    final TrainState and one dict per iteration (iteration, attempt,
+    data_time and step_time in seconds (this rank's), the step's logs
+    (global), "eval", do_test's results, after an evaluation, and with
+    several ranks "rank_times", every rank's (data_time, step_time), on
+    rank 0)."""
     from ..data.build import build_train_batches, prefetch, to_device
     from ..models.priors import compute_priors
     from ..models.rcnn3d import build_model, resolve_device
+    from ..parallel import distributed
+    from ..parallel.mesh import make_mesh, replicate
     from ..parallel.train_step import create_train_state, train_step
     from ..solver.checkpoint import (PeriodicCheckpointerOnlyOne, load_model_weights,
                                      load_weights_pretrain)
@@ -161,6 +187,8 @@ def do_train(cfg, args, records, loaders, num_classes):
 
     dev = resolve_device(args.device)
     seed = seed_of(cfg)
+    mesh = make_mesh(cfg.TPU.MESH_SHAPE)
+    check_batch_divides(cfg, mesh.world)
     # priors for every class of the model (a dataset may name fewer)
     priors = compute_priors(cfg, records, max(num_classes, cfg.MODEL.ROI_HEADS.NUM_CLASSES))
     model = build_model(cfg, priors, device=dev, seed=seed)
@@ -173,18 +201,22 @@ def do_train(cfg, args, records, loaders, num_classes):
         logger.info("initialised weights from MODEL.WEIGHTS=%s", cfg.MODEL.WEIGHTS)
     ckpt = PeriodicCheckpointerOnlyOne(cfg.OUTPUT_DIR, cfg.SOLVER.CHECKPOINT_PERIOD)
     state = ckpt.resume_or_load(model, opt, state, resume=args.resume)
+    replicate(model, mesh)  # every rank starts from rank 0's weights
     start_iter = state.step
-    logger.info("model on %s; %s at step %d", dev,
+    logger.info("model on %s (rank %d of %d, %d images each); %s at step %d", dev, mesh.rank,
+                mesh.world, cfg.SOLVER.IMS_PER_BATCH // mesh.world,
                 "resumed" if args.resume and start_iter else "starting", start_iter)
 
-    # two pipeline stages: the mapper, and the copy of each batch to the
-    # device, both ahead of the step
-    batches = prefetch(build_train_batches(cfg, records, loaders=loaders))
+    # two pipeline stages: the mapper (of this rank's rows), and the copy of
+    # each batch to the device, both ahead of the step
+    batches = prefetch(build_train_batches(cfg, records, loaders=loaders, rank=mesh.rank,
+                                           world=mesh.world))
     dev_batches = prefetch(to_device(b, dev) for b in batches)
 
     max_iter = cfg.SOLVER.MAX_ITER
     storage = EventStorage(start_iter)
-    writers = default_writers(cfg.OUTPUT_DIR, use_wandb=bool(cfg.log))
+    writers = default_writers(cfg.OUTPUT_DIR, use_wandb=bool(cfg.log)) \
+        if distributed.is_main_process() else []
     eta = ETA(max_iter - start_iter)
     attempt, it = 1, start_iter
     history, last_finite = [], {}
@@ -193,7 +225,7 @@ def do_train(cfg, args, records, loaders, num_classes):
     t0, n_logged = time.time(), 0
     prof = None
     while it < max_iter:
-        if args.profile and it == start_iter + 10:
+        if args.profile and it == start_iter + PROFILE_FIRST and distributed.is_main_process():
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU] + (
                 [torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda" else []))
             prof.__enter__()
@@ -209,17 +241,13 @@ def do_train(cfg, args, records, loaders, num_classes):
                             step_time=dt_step, logs=logs))
         it += 1
         storage.step()
-        if prof is not None and it == start_iter + 20:
-            prof.__exit__(None, None, None)
-            path = os.path.join(cfg.OUTPUT_DIR, "profile", "trace.json")
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            prof.export_chrome_trace(path)
+        if prof is not None and it in (start_iter + PROFILE_FIRST + PROFILE_STEPS, max_iter):
+            _export_trace(cfg, prof)
             prof = None
-            logger.info("profiler trace written to %s", path)
         # periodic JPEGs (reference VIS_PERIOD images, rcnn3d.py:126-263) and
         # evaluation (reference do_test every TEST.EVAL_PERIOD); an error in
         # either stops the run
-        if cfg.VIS_PERIOD > 0 and it % cfg.VIS_PERIOD == 0:
+        if cfg.VIS_PERIOD > 0 and it % cfg.VIS_PERIOD == 0 and distributed.is_main_process():
             _dump_train_vis(cfg, batch, it, model)
         if cfg.TEST.EVAL_PERIOD > 0 and it % cfg.TEST.EVAL_PERIOD == 0 and it < max_iter:
             if eval_data is None:
@@ -256,10 +284,12 @@ def do_train(cfg, args, records, loaders, num_classes):
         ckpt.step(it - 1, model, opt, state)
 
         # restart from the last checkpoint when too many updates exploded
-        # (reference train_net.py:270-302)
+        # (reference train_net.py:270-302): rank 0 decides (the counters are
+        # global, so every rank would), every rank reloads what rank 0 wrote
         if it % max(cfg.SOLVER.CHECKPOINT_PERIOD // 2, 1) == 0:
             frac = state.skipped / max(state.skipped + state.applied, 1)
-            if frac >= cfg.MODEL.STABILIZE and attempt < MAX_TRAINING_ATTEMPTS:
+            if distributed.broadcast_object(frac >= cfg.MODEL.STABILIZE) \
+                    and attempt < MAX_TRAINING_ATTEMPTS:
                 attempt += 1
                 logger.warning("exploded fraction %.3f >= STABILIZE; restarting from the last "
                                "checkpoint (attempt %d)", frac, attempt)
@@ -267,13 +297,23 @@ def do_train(cfg, args, records, loaders, num_classes):
                 state = dataclasses.replace(state, skipped=0, applied=0)
 
     dev_batches.close()  # stops the copy stage; the mapper stage stops with it
-    if prof is not None:
-        prof.__exit__(None, None, None)
     ckpt.finalize(model, opt, state)
+    ranks = distributed.gather_objects([(h["data_time"], h["step_time"]) for h in history])
+    if mesh.world > 1 and ranks is not None:
+        for i, h in enumerate(history):
+            h["rank_times"] = [r[i] for r in ranks]
     for w in writers:
         w.close()
     logger.info("training done: %d iters, %d skipped updates", state.step, state.skipped)
     return state, history
+
+
+def _export_trace(cfg, prof) -> None:
+    prof.__exit__(None, None, None)
+    path = os.path.join(cfg.OUTPUT_DIR, "profile", "trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
 
 
 def _dump_train_vis(cfg, batch, it: int, model) -> None:
@@ -317,11 +357,23 @@ def _dump_train_vis(cfg, batch, it: int, model) -> None:
 
 def main(argv=None):
     """Train (returns (state, history)), or with --eval-only evaluate
-    (returns do_test's results)."""
+    (returns do_test's results). With TPU.MESH_SHAPE asking for several
+    processes, spawns them (each runs main) and returns rank 0's result."""
+    from ..parallel import distributed
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     cfg = setup(args)
+    device_type = torch.device(args.device or "cuda").type
+    if not distributed.maybe_initialize_distributed(device_type):
+        n = distributed.processes_for(cfg.TPU.MESH_SHAPE, device_type)
+        if n > 1:
+            if not args.eval_only:
+                check_batch_divides(cfg, n)  # before spawning anything
+            return distributed.launch(main, n, (argv,), device_type=device_type)
+    if not distributed.is_main_process():
+        logger.setLevel(logging.WARNING)
     if args.eval_only:
         from ..models.priors import compute_priors
         from .eval_net import do_test
