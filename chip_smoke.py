@@ -120,8 +120,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      at 4, --resume to 8 under the profiler (rank 0's NCCL kernels per step
      by kind), images/s, each rank's data, step and mapper ms; the eval CLI
      sharded over all cards on that checkpoint;
- 14. print the kernels line (K1, K1-bwd, K2) and, last,
-     {"ok": true, "device": {...}}.
+ 25. (after 13) the supervised Cube R-CNN step at full width
+     (configs/cubercnn_DLA34_FPN.yaml: RCNN3D + ROIHeads3D, DLA-34, 38
+     classes, bf16), b25 of tiny_batch at 512 px with GT rotations drawn at
+     random: one warm-up and 5 timed steps, every loss finite, K1 and K1-bwd
+     launched twice per step and held to their plain versions on a step's
+     own inputs; ms per step, peak memory; the same step with LOSS_W_3D 0
+     (the recipe's 2D-only pretrain): once per step;
+ 26. the weak step with every loss at full width (the default
+     loss_functions, iou and segmentation; 64 x 64 per-GT masks filled from
+     the GT boxes), checked as 25; one more step under the profiler with
+     the new losses' plain ops (the z search, the lattice median, the
+     quantiles, the soft hull) in ranges: each one's device time, and each
+     timed alone on that step's inputs (CUDA events), peak memory;
+ 27. the small float32 supervised and all-loss steps on the card against
+     the CPU with injected anchor labels and RoIs (tests/torch_train_check.py);
+ 28. the published recipe through the train CLI at full width on 50
+     synthetic scenes: configs/Base_Omni3D_2D_only.yaml for 4 iterations (K1
+     and K1-bwd once per step, no Cube/ key), then configs/Omni_combined.yaml
+     warm-started from its model_final by MODEL.WEIGHTS_PRETRAIN for 4
+     (twice per step); steps/s of each;
+ 14. print the kernels line (K1, K1-bwd, K2; their launches on every path
+     above) and, last, {"ok": true, "device": {...}}.
 
 The CLI phases before 24 run one process (TPU.MESH_SHAPE [1]), so that the
 script does the same on a machine with several cards.
@@ -664,14 +684,15 @@ def k1_backward_checks(dev, fwd_levels, fwd_boxes):
             fwd_levels[0].dtype, fwd_boxes)
 
 
-def with_pooler_calls_kept(step):
-    """Run step() (one training step) with the inputs of its two K1 calls
-    (pyramid and boxes) and two K1-bwd calls (g and boxes) kept. Returns
-    (K1 calls, K1-bwd calls), the box pooler's first in each (the forward
-    meets the box pooler first, the backward the cube pooler; the box pooler
-    has the more RoIs). The K1-bwd wrapper counts its launches on its
-    module's name, which is the stand-in meanwhile: they are added to its
-    own count after the step."""
+def with_pooler_calls_kept(step, n: int = 2):
+    """Run step() (one training step) with the inputs of its n K1 calls
+    (pyramid and boxes) and n K1-bwd calls (g and boxes) kept: 2 (box and
+    cube pooler), 1 for a 2D-only step (box pooler). Returns (K1 calls,
+    K1-bwd calls), the box pooler's first in each (the forward meets the
+    box pooler first, the backward the cube pooler; the box pooler has the
+    more RoIs). The K1-bwd wrapper counts its launches on its module's
+    name, which is the stand-in meanwhile: they are added to its own count
+    after the step."""
     import torch
     from weakcube_tpu_torch.ops import roi_align_cuda
     fwd_calls, bwd_calls = [], []
@@ -692,9 +713,9 @@ def with_pooler_calls_kept(step):
         roi_align_cuda._forward, roi_align_cuda.roi_align_backward = fwd, bwd
         bwd.launches += keep_bwd.launches
     torch.cuda.synchronize()
-    if len(fwd_calls) != 2 or len(bwd_calls) != 2:
+    if len(fwd_calls) != n or len(bwd_calls) != n:
         fail(f"the kept step made {len(fwd_calls)} K1 and {len(bwd_calls)} K1-bwd calls, "
-             "expected 2 each")
+             f"expected {n} each")
     fwd_calls.sort(key=lambda c: -c[1].shape[1])
     bwd_calls.sort(key=lambda c: -c[1].shape[1])
     return fwd_calls, bwd_calls
@@ -1637,6 +1658,276 @@ def periodic_phase(dev, out):
     return {"demo_s": demo_s, "periodic_s": wall}
 
 
+# ------------------------------------------------ every head and loss (PR 11)
+ALL_LOSSES = ["dims", "pose_alignment", "pose_ground", "iou", "z", "z_pseudo_gt_patch", "depth",
+              "segmentation"]  # the default loss_functions, and segmentation
+MASK_SIZE = 64
+
+
+def config_at(name: str, **opts):
+    """configs/<name> (over its bases) at a square TRAIN_SIZE canvas, with
+    opts (dotted keys) set."""
+    from weakcube_tpu_torch.config import get_cfg
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(HERE, "configs", name))
+    cfg.TPU.IMAGE_SIZE = TRAIN_SIZE
+    cfg.merge_from_list([x for kv in opts.items() for x in kv])
+    cfg.freeze()
+    return cfg
+
+
+def full_width_steps(dev, cfg, batch, label: str, n_calls: int) -> dict:
+    """One warm-up and TRAIN_STEPS timed steps of cfg's model (random
+    weights from seed 0) on batch through create_train_state + train_step,
+    then one step whose pooler calls are kept and held to the kernels'
+    plain versions. Fails unless every loss is finite (Cube/IoU3D off its
+    tick excepted), every update applied and K1 and K1-bwd launched n_calls
+    times per step. Returns the times, peak memory, launches and errors,
+    and the model, optimizer and state for more steps."""
+    import numpy as np
+    import torch
+    from weakcube_tpu_torch.entry import dims_priors
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
+
+    K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
+    model = build_model(cfg, dims_priors(cfg.MODEL.ROI_HEADS.NUM_CLASSES), device=dev, seed=0)
+    state, opt = create_train_state(cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_steps = 1 + TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = bwd.launches = 0
+    times, all_logs = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, logs = train_step(model, opt, state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        all_logs.append(logs)
+    k1, kb = K1.launches, bwd.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [(i, k) for i, l in enumerate(all_logs) for k, v in l.items()
+           if not np.isfinite(v) and (i == 0 or k != "Cube/IoU3D")]
+    if bad:
+        fail(f"{label}: non-finite training logs (step, key): {bad[:8]}")
+    if state.applied != n_steps or state.skipped:
+        fail(f"{label}: {state.applied} of {n_steps} updates applied, {state.skipped} skipped")
+    if k1 != n_calls * n_steps or kb != n_calls * n_steps:
+        fail(f"{label}: K1 launched {k1} and K1-bwd {kb} times in {n_steps} steps, expected "
+             f"{n_calls} each per step")
+    ms = statistics.median(times[1:])
+    print(f"[{label}] {cfg.MODEL.META_ARCHITECTURE} / {cfg.MODEL.ROI_HEADS.NAME} "
+          f"{cfg.MODEL.DLA.TYPE} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, "
+          f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, {cfg.TPU.COMPUTE_DTYPE}, LOSS_W_3D "
+          f"{cfg.MODEL.ROI_CUBE_HEAD.LOSS_W_3D}, b{TRAIN_BATCH} @ {TRAIN_SIZE} px: {n_steps} "
+          f"steps applied, every loss finite; K1 launches {k1}, K1-bwd launches {kb} "
+          f"({n_calls} + {n_calls} per step); peak memory {peak:.2f} GiB")
+    print(f"[{label}] losses of the last step: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in all_logs[-1].items()))
+    print(f"[timing] {label} b{TRAIN_BATCH} @ {TRAIN_SIZE} px: median {ms:.3f} ms over "
+          f"{TRAIN_STEPS} (each {', '.join(f'{x:.3f}' for x in times)} ms, first is the "
+          f"warm-up; spread {min(times[1:]):.3f}-{max(times[1:]):.3f} ms), "
+          f"{TRAIN_BATCH * 1e3 / ms:.2f} images/s")
+    out = {}
+
+    def kept():
+        out["state"], _ = train_step(model, opt, state, batch, gen)
+    fwd_calls, bwd_calls = with_pooler_calls_kept(kept, n_calls)
+    print(f"[compare] K1 and K1-bwd vs plain on the {label}'s own pyramid, boxes and gradients")
+    errs = check_pooler_calls(fwd_calls, bwd_calls, f"{label} ")
+    return dict(ms=ms, times=times, peak_gib=peak, k1=k1, k1_bwd=kb, errs=errs,
+                logs=all_logs[-1], model=model, opt=opt, state=out["state"], gen=gen)
+
+
+def weak_op_times(dev, run: dict, batch) -> dict:
+    """One more step of the all-loss weak run under the profiler, the four
+    plain ops of its new losses (the z search, the lattice median, the
+    depth range's quantiles, the soft hull) each inside a record_function
+    range: each range's device time (the soft hull's range also holds the
+    recompute that its activation checkpointing runs in the backward).
+    Their inputs are kept, and each op is also timed alone on them by CUDA
+    events: forward, and forward + backward where it has a gradient."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from weakcube_tpu_torch.models import roi_heads
+    from weakcube_tpu_torch.ops import hull
+    from weakcube_tpu_torch.parallel.train_step import train_step
+
+    owners = {"z_area_search_loss": roi_heads, "masked_median_depth_in_boxes": roi_heads,
+              "nanquantile": torch, "soft_hull_mask": hull}
+    orig = {name: getattr(mod, name) for name, mod in owners.items()}
+    kept = {name: [] for name in owners}
+
+    def wrap(name):
+        def fn(*a, **k):
+            if not kept[name]:
+                kept[name].append((a, k))
+            with record_function(f"weak_op::{name}"):
+                return orig[name](*a, **k)
+        return fn
+    for name, mod in owners.items():
+        setattr(mod, name, wrap(name))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            train_step(run["model"], run["opt"], run["state"], batch, run["gen"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    finally:
+        for name, mod in owners.items():
+            setattr(mod, name, orig[name])
+    rep = {"step_wall_ms": wall}
+    ev = {e.key: e for e in prof.key_averages()}
+    for name in owners:
+        e = ev.get(f"weak_op::{name}")
+        dev_us = 0.0 if e is None else getattr(e, "device_time_total", 0.0) or 0.0
+        rep[f"{name}_profiled_ms"] = dev_us / 1e3 if dev_us else None
+        rep[f"{name}_calls"] = 0 if e is None else e.count
+    # alone, on the step's own inputs
+    for name in owners:
+        if not kept[name]:
+            fail(f"the all-loss step never called {name}")
+        a, k = kept[name][0]
+
+        # the gradient flows into the cubes (z search) and the corners (hull)
+        a = [x.detach() if torch.is_tensor(x) else x for x in a]
+        if name == "z_area_search_loss":
+            a[1] = type(a[1])(a[1].tensor.detach().requires_grad_(True))
+        elif name == "soft_hull_mask":
+            a[0].requires_grad_(True)
+        call = lambda: orig[name](*a, **k)
+        fwd = statistics.median(timed_ms(call, 5, warmup=1) for _ in range(3))
+        out = call()
+        both = None
+        if out.requires_grad:
+            g = torch.ones_like(out)
+            both = statistics.median(timed_ms(lambda: call().backward(g), 5, warmup=1)
+                                     for _ in range(3))
+        rep[f"{name}_ms"], rep[f"{name}_fwd_bwd_ms"] = fwd, both
+        shape = tuple(a[0].shape) if torch.is_tensor(a[0]) else tuple(a[1].tensor.shape)
+        prof_ms = rep[f"{name}_profiled_ms"]
+        print(f"[timing] {name} on the all-loss step's inputs (first argument {shape}): "
+              f"{fwd:.3f} ms forward" + (f", {both:.3f} ms forward + backward" if both else "")
+              + " (CUDA events, median of 3 x 5 calls); in the profiled step "
+              + (f"{prof_ms:.3f} ms of device time over {rep[f'{name}_calls']} call(s)"
+                 if prof_ms is not None else "no device time recorded: not measured"))
+    return rep
+
+
+def heads_phases(dev) -> dict:
+    """Phases 25-27: the supervised step at full width (and its 2D-only
+    form), the weak step with every loss at full width, and the small
+    supervised and all-loss steps on the card against the CPU."""
+    import torch
+    from weakcube_tpu_torch.entry import flagship_cfg
+    from torch_train_check import train_step_card_vs_cpu, with_box_masks, with_random_poses
+    from weakcube_tpu_torch.entry import tiny_batch
+
+    rep = {}
+    batch = tiny_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, G=TRAIN_GT, seed=0, device=dev)
+    # -- 25. supervised Cube R-CNN, and the 2D-only pretrain ------------------
+    sup_batch = with_random_poses(batch)
+    for key, cfg, n in (("supervised", config_at("cubercnn_DLA34_FPN.yaml"), 2),
+                        ("2d_only", config_at("cubercnn_DLA34_FPN.yaml",
+                                              **{"MODEL.ROI_CUBE_HEAD.LOSS_W_3D": "0.0"}), 1)):
+        t = time.time()
+        run = full_width_steps(dev, cfg, sup_batch, f"{key} step", n)
+        if key == "2d_only" and any(k.startswith("Cube/") for k in run["logs"]):
+            fail(f"the 2D-only step logged cube keys: {sorted(run['logs'])}")
+        rep[key] = {k: run[k] for k in ("ms", "times", "peak_gib", "k1", "k1_bwd", "errs")}
+        del run
+        torch.cuda.empty_cache()
+        print(f"[phase] 25 ({key} step) took {time.time() - t:.1f} s")
+    # -- 26. the weak step with every loss ----------------------------------------
+    t = time.time()
+    cfg = flagship_cfg(TRAIN_SIZE).clone()
+    cfg.defrost()
+    cfg.loss_functions = list(ALL_LOSSES)
+    cfg.freeze()
+    all_batch = with_box_masks(batch, MASK_SIZE)
+    run = full_width_steps(dev, cfg, all_batch, "all-loss weak step", 2)
+    want = {"Cube/loss_z", "Cube/loss_pseudo_gt_z", "Cube/loss_depth", "Cube/loss_seg",
+            "Cube/loss_iou", "Cube/loss_normal_vec", "Cube/loss_pose", "Cube/loss_dims_w"}
+    if not want <= set(run["logs"]):
+        fail(f"the all-loss step logged {sorted(run['logs'])}, missing {want - set(run['logs'])}")
+    rep["all_losses"] = {k: run[k] for k in ("ms", "times", "peak_gib", "k1", "k1_bwd", "errs")}
+    rep["all_losses"]["ops"] = weak_op_times(dev, run, all_batch)
+    del run
+    torch.cuda.empty_cache()
+    print(f"[phase] 26 (all-loss weak step) took {time.time() - t:.1f} s")
+    # -- 27. the small supervised and all-loss steps, card vs CPU -------------------
+    for kind in ("supervised", "all_losses"):
+        t = time.time()
+        r = train_step_card_vs_cpu(dev, kind)
+        print(f"[reference] small float32 {kind} training step, card vs CPU (the same injected "
+              f"anchor labels and RoIs): {r['n_losses']} losses and metrics, {r['n_grads']} "
+              f"gradients and {r['n_params']} parameters and statistics after the update agree "
+              f"(worst relative error "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in r['worst_rel'].items())}; bound: 1e-4 of "
+              f"scale, 1e-5 for parameters, plus 3x the CPU float32 step's distance to its "
+              f"float64 step); {time.time() - t:.1f} s")
+    return rep
+
+
+def recipe_cli_phase(dev, out: str) -> dict:
+    """Phase 28: the published recipe through the train CLI at full width
+    on 50 synthetic scenes: the 2D-only pretrain
+    (configs/Base_Omni3D_2D_only.yaml: RCNN3D, ROIHeads3D, LOSS_W_3D 0) for
+    4 iterations, then the weak run (configs/Omni_combined.yaml)
+    warm-started from its model_final by MODEL.WEIGHTS_PRETRAIN for 4. K1
+    and K1-bwd launch once per 2D-only step and twice per weak step; the
+    2D-only run logs no Cube/ key. Returns steps/s and launches of each."""
+    import math
+    import torch
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.tools import train_net
+
+    K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
+    rep = {}
+    stages = (("2d_only", "Base_Omni3D_2D_only.yaml", 1, []),
+              ("weak", "Omni_combined.yaml", 2,
+               ["MODEL.WEIGHTS_PRETRAIN", os.path.join(out, "2d_only", "model_final.pt")]))
+    for key, config, n, extra in stages:
+        argv = ["--config-file", os.path.join(HERE, "configs", config), "--synthetic", "50",
+                "--max-iters", "4", "SOLVER.CHECKPOINT_PERIOD", "4", "TEST.EVAL_PERIOD", "0",
+                "VIS_PERIOD", "0", "TPU.MESH_SHAPE", "[1]", "OUTPUT_DIR",
+                os.path.join(out, key), *extra]
+        K1.launches = bwd.launches = 0
+        t = time.time()
+        state, hist = train_net.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        k1, kb = K1.launches, bwd.launches
+        if state.step != 4 or state.applied != 4:
+            fail(f"recipe {key}: step {state.step}, applied {state.applied}, expected 4")
+        if k1 != 4 * n or kb != 4 * n:
+            fail(f"recipe {key}: K1 {k1} and K1-bwd {kb} launches in 4 steps, expected {4 * n}")
+        bad = [(h["iteration"], k) for h in hist for k, v in h["logs"].items()
+               if k != "Cube/IoU3D" and not math.isfinite(v)]
+        if bad:
+            fail(f"recipe {key}: non-finite logs (iteration, key): {bad[:8]}")
+        cube = sorted({k for h in hist for k in h["logs"] if k.startswith("Cube/")})
+        if (key == "2d_only") == bool(cube):
+            fail(f"recipe {key}: cube keys {cube}")
+        timed = hist[1:]
+        secs = sum(h["data_time"] + h["step_time"] for h in timed)
+        rep[key] = {"steps_per_s": len(timed) / secs, "k1": k1, "k1_bwd": kb, "wall_s": wall,
+                    "step_ms": [1e3 * h["step_time"] for h in hist],
+                    "data_ms": [1e3 * h["data_time"] for h in hist]}
+        print(f"[recipe] train_net --config-file configs/{config} --synthetic 50 --max-iters 4 "
+              f"{' '.join(extra)}: {wall:.1f} s; K1 launches {k1}, K1-bwd launches {kb} "
+              f"({n} + {n} per step); last loss {hist[-1]['logs']['total_loss']:.4f}")
+        print(f"[timing] recipe {key} iterations 2-4: {rep[key]['steps_per_s']:.3f} steps/s at "
+              f"b25 (data / step ms per iteration: " + ", ".join(
+                  f"{d:.1f} / {s_:.1f}" for d, s_ in zip(rep[key]["data_ms"],
+                                                          rep[key]["step_ms"])) + ")")
+    return rep
+
+
 # ---------------------------------------------------------------- data parallel
 DP_BATCH, DP_STEPS, DP_RANKS = 8, 3, 2
 DP_CLI_PER_CARD = 25  # the flagship's images per card (Omni_combined.yaml's b25)
@@ -2394,6 +2685,14 @@ def main() -> None:
     print(f"[phase] 11-13 (training step) took {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
 
+    # -- 25.-27. every head and loss: the supervised, 2D-only and all-loss
+    # steps at full width, and small ones card vs CPU ---------------------------
+    t = time.time()
+    heads = heads_phases(dev)
+    max_err["heads"] = max(r["errs"]["K1"] for r in heads.values())
+    print(f"[phase] 25-27 (supervised, 2D-only and all-loss steps) took {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
+
     # -- 23. DP-step: two ranks on this card against one process --------------
     t = time.time()
     dp = dp_step_phase(dev)
@@ -2417,6 +2716,8 @@ def main() -> None:
                 ("20 (K1 at the eval batch's shapes)", lambda: eval_k1_phase(dev, cli_out)),
                 ("21 (evaluator, card vs CPU)", lambda: evaluator_phase(dev, rep["19"][1])),
                 ("22 (periodic eval, vis, demo)", lambda: periodic_phase(dev, cli_out)),
+                ("28 (the recipe through the CLI)",
+                 lambda: recipe_cli_phase(dev, os.path.join(cli_out, "recipe"))),
                 ("24 (DP-CLI)", lambda: dp_cli_phase(dev))):
             t = time.time()
             rep[name.split()[0]] = phase()
@@ -2426,6 +2727,17 @@ def main() -> None:
         shutil.rmtree(cli_out, ignore_errors=True)
     print(f"[done] total run {time.time() - t_start:.1f} s")
     ev, ev_k1 = rep["19"][0], rep["20"]
+    recipe = rep["28"]
+    # the launches of this PR's paths: the supervised, 2D-only and all-loss
+    # steps (6 each), and the recipe's two CLI runs (4 iterations each)
+    new_paths = {f"supervised step (6 x b{TRAIN_BATCH})": "supervised",
+                 f"2D-only step (6 x b{TRAIN_BATCH})": "2d_only",
+                 f"all-loss weak step (6 x b{TRAIN_BATCH})": "all_losses"}
+    new_k1 = {k: heads[v]["k1"] for k, v in new_paths.items()}
+    new_bwd = {k: heads[v]["k1_bwd"] for k, v in new_paths.items()}
+    for key, name in (("2d_only", "recipe CLI 2D-only (4 x b25)"),
+                      ("weak", "recipe CLI weak, warm-started (4 x b25)")):
+        new_k1[name], new_bwd[name] = recipe[key]["k1"], recipe[key]["k1_bwd"]
 
     # -- 14. result lines ---------------------------------------------------
     print(card)  # again beside the results at the end of the output
@@ -2435,21 +2747,22 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align (ROIAlignV2 fwd), box + cube pooler per forward",
         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": launches + ev["launches"] + dp["k1"],
+        "launches": launches + ev["launches"] + dp["k1"] + sum(new_k1.values()),
         "launches_by_path": {"detection forward (4 x b8)": launches,
                              f"eval CLI ({ev['batches']} x b{EVAL_BATCH})": ev["launches"],
                              f"DP-step ({DP_RANKS} ranks x {DP_STEPS} steps of "
-                             f"b{DP_BATCH // DP_RANKS})": dp["k1"]},
+                             f"b{DP_BATCH // DP_RANKS})": dp["k1"], **new_k1},
         "max_abs_err": max(max(max_err.values()), ev_k1["max_abs_err"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": bound_by, "library_ms": tot["library_ms"],
         "eval_batch": {k: ev_k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")}},
-        dict(k1_bwd, launches=k1_bwd["launches"] + dp["k1_bwd"],
+        dict(k1_bwd, launches=k1_bwd["launches"] + dp["k1_bwd"] + sum(new_bwd.values()),
              launches_by_path={"training step (6 x b25)": k1_bwd["launches"],
                                f"DP-step ({DP_RANKS} ranks x {DP_STEPS} steps of "
-                               f"b{DP_BATCH // DP_RANKS})": dp["k1_bwd"]},
-             max_abs_err=max(k1_bwd["max_abs_err"], dp["errs"]["K1-bwd"])), k2]}))
+                               f"b{DP_BATCH // DP_RANKS})": dp["k1_bwd"], **new_bwd},
+             max_abs_err=max(k1_bwd["max_abs_err"], dp["errs"]["K1-bwd"],
+                             *(r["errs"]["K1-bwd"] for r in heads.values()))), k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,8 +5,9 @@ over gloo.
     against one process on the concatenated input: the synced BatchNorm
     (output, input and parameter gradients, pending statistics),
     global_sum, masked_mean and pose_alignment_loss (values and
-    gradients), and the Gumbel and RANSAC draws (a rank's draws are the
-    global draw's rows, exactly);
+    gradients), the supervised ROI head's training forward (losses,
+    metrics, parameter and feature gradients), and the Gumbel and RANSAC
+    draws (a rank's draws are the global draw's rows, exactly);
   * the batch iterators at W = 2 and 4: the ranks' rows form one global
     batch of one bucket, the same at every W > 1; the test iterator covers
     every record once after deduplication;
@@ -114,6 +115,7 @@ def one_process(x):
     pl, has = roi_heads.pose_alignment_loss(pose, t["pose_fg"])
     pl.backward()
     out["pose_alignment"] = dict(value=pl.detach(), has=has, grad=pose.grad)
+    out["supervised_head"] = pc.supervised_head(t)
     return {**out, **pc.draws_of_one_process(x)}
 
 
@@ -123,8 +125,8 @@ def test_ranks_import_no_jax(ops_run):
     assert all(r["imported"] == [] for r in ranks)
 
 
-@pytest.mark.parametrize("op", ["bn", "global_sum", "masked_mean", "pose_alignment", "gumbel",
-                                "ransac"])
+@pytest.mark.parametrize("op", ["bn", "global_sum", "masked_mean", "pose_alignment",
+                                "supervised_head", "gumbel", "ransac"])
 def test_op_over_two_ranks_equals_one_process(ops_run, op):
     """Row-wise values and input gradients are the rank's rows of one
     process's; reduced values (BatchNorm's parameter gradients and pending
@@ -154,6 +156,19 @@ def test_op_over_two_ranks_equals_one_process(ops_run, op):
         close(sum(g[op]["value"] for g in ranks), want["value"], op)
         for r, got in enumerate(ranks):
             close(got[op]["grad"], shard_batch(want["grad"], mesh[r]), f"{op} grad rank {r}")
+    elif op == "supervised_head":
+        # losses and metrics are the ranks' shares; the parameter gradients
+        # the whole on every rank (after sum_gradients), the feature
+        # gradients each rank's rows
+        for kind in ("losses", "metrics"):
+            assert all(set(g[op][kind]) == set(want[kind]) for g in ranks)
+            for k, v in want[kind].items():
+                close(sum(g[op][kind][k] for g in ranks), v, f"{op} {k}")
+        for r, got in enumerate(ranks):
+            for k, v in want["grads"].items():
+                close(got[op]["grads"][k], v, f"{op} d/d {k} rank {r}")
+            for k, v in want["feat_grads"].items():
+                close(got[op]["feat_grads"][k], shard_batch(v, mesh[r]), f"{op} d/d {k} rank {r}")
     elif op == "gumbel":
         assert torch.equal(torch.cat([g[op] for g in ranks]), want)
     else:

@@ -6,9 +6,11 @@ batch 2, on 4 synthetic scenes: the CLI trains, logs metrics.json, saves
 model_recent and model_final, resumes from model_recent, and restarts from
 it when the skipped share reaches MODEL.STABILIZE; it accepts --eval-only,
 TEST.EVAL_PERIOD and VIS_PERIOD, which tests/test_torch_eval_cli.py runs. A
-checkpoint saved and loaded
-into a fresh model continues a CPU step exactly (on the card K1-bwd's float
-atomics make two runs differ in rounding).
+checkpoint saved and loaded into a fresh model continues a step exactly.
+The published recipe runs through the CLI: the 2D-only pretrain
+(configs/Base_Omni3D_2D_only.yaml: RCNN3D, ROIHeads3D, LOSS_W_3D 0), then
+the weak run (configs/Omni_combined.yaml) warm-started from its
+model_final by MODEL.WEIGHTS_PRETRAIN.
 """
 import json
 import math
@@ -23,6 +25,7 @@ from weakcube_tpu_torch.models.rcnn3d import build_model
 from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
 from weakcube_tpu_torch.solver import checkpoint
 from weakcube_tpu_torch.tools import train_net
+from weakcube_tpu_torch.utils import events
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPTS = ["MODEL.BACKBONE.NAME", "build_dla_from_vision_fpn_backbone", "MODEL.DLA.TYPE", "dla34",
@@ -161,3 +164,70 @@ def test_step_generator_depends_on_seed_and_iteration_only():
     assert not np.array_equal(
         torch.randint(0, 1 << 30, (4,), generator=train_net.step_generator(13, 0, "cpu")),
         draw[0])
+
+
+class NoTensorboard:
+    """Stands in for the CLI's TensorBoard writer (TensorFlow's import)."""
+
+    def __init__(self, log_dir):
+        pass
+
+    def write(self, storage):
+        pass
+
+    def close(self):
+        pass
+
+
+# the recipe configs' RoI and head sizes cut to synthetic_smoke.yaml's
+SMALL_HEADS = ["MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "64", "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "256",
+               "MODEL.RPN.POST_NMS_TOPK_TRAIN", "128", "MODEL.ROI_BOX_HEAD.FC_DIM", "256",
+               "MODEL.ROI_CUBE_HEAD.FC_DIM", "256"]
+
+
+@pytest.fixture
+def one_thread():
+    """Small shapes, and test workers run side by side: one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_recipe_2d_pretrain_then_weak_warm_start(tmp_path, monkeypatch, one_thread):
+    """Two iterations of the 2D-only pretrain log no Cube/ key and train the
+    box branch alone; two of the weak run warm-started from its
+    model_final start from every one of its tensors (RCNN3D and
+    RCNN3D_combined_features share the names) and train the cube branch."""
+    from weakcube_tpu_torch.parallel import train_step as ts
+    monkeypatch.setattr(events, "TensorboardWriter", NoTensorboard)
+    first, step = {}, ts.train_step
+
+    def spy(model, *a, **k):
+        if not first:
+            first.update({k: v.clone() for k, v in model.state_dict().items()})
+            first["_arch"] = type(model).__name__
+        return step(model, *a, **k)
+    monkeypatch.setattr(ts, "train_step", spy)
+
+    def recipe(config, out, *opts):
+        first.clear()
+        return train_net.main(["--config-file", os.path.join(REPO, "configs", config),
+                               "--synthetic", "4", "--device", "cpu", "--max-iters", "2",
+                               *OPTS, *SMALL_HEADS, "OUTPUT_DIR", str(out), *opts])
+    state, hist = recipe("Base_Omni3D_2D_only.yaml", tmp_path / "2d")
+    assert first["_arch"] == "RCNN3D" and (state.step, state.applied) == (2, 2)
+    for h in hist:
+        assert not [k for k in h["logs"] if k.startswith("Cube/")], h["logs"]
+        assert all(math.isfinite(v) for v in h["logs"].values())
+    final = checkpoint.PeriodicCheckpointerOnlyOne(str(tmp_path / "2d"), 1).path("model_final")
+    saved = torch.load(final, weights_only=True)["model"]
+    state, hist = recipe("Omni_combined.yaml", tmp_path / "weak", "MODEL.WEIGHTS_PRETRAIN", final)
+    assert first.pop("_arch") == "RCNN3DCombinedFeatures"
+    assert set(first) == set(saved)
+    for k, v in saved.items():
+        assert torch.equal(first[k], v), k
+    assert (state.step, state.applied) == (2, 2)
+    for h in hist:
+        assert {"Cube/loss_iou", "Cube/loss_normal_vec", "Cube/loss_pose"} <= set(h["logs"])
+        assert all(math.isfinite(v) for k, v in h["logs"].items() if k != "Cube/IoU3D")

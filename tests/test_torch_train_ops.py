@@ -8,6 +8,15 @@ on the clamp bound, equal corner coordinates) are included: the port writes
 jnp.clip / jnp.maximum / jnp.min as torch.minimum / maximum / amin, which
 share JAX's subgradient there. The samplers draw from a torch.Generator,
 not JAX's PRNG, so they are held to their invariants.
+
+The weak losses outside the recipe (z, z_pseudo_gt_patch, depth,
+segmentation), the focal loss, the soft hull and the supervised head's
+chamfer are held in float64 (jax.enable_x64), value and gradients within
+1e-9 of each tensor's scale (value_and_grads64), with their ties: hull
+corners on integer pixel coordinates, collinear and coincident corners,
+an even-count median whose middle pair differs, equal candidate areas in
+the z search, a chamfer tie and L1 terms at exactly 0 (jnp.abs's gradient
+there is 1, torch.abs's 0).
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +30,7 @@ from weakcube_tpu.models import roi_heads as j_roi_heads
 from weakcube_tpu.models import rpn as j_rpn
 from weakcube_tpu.ops import boxes as j_boxes
 from weakcube_tpu.ops import cuboids as j_cuboids
+from weakcube_tpu.ops import hull as j_hull
 from weakcube_tpu.ops import losses as j_losses
 from weakcube_tpu.ops import roi_align as j_ra
 from weakcube_tpu.ops import rotations as j_rot
@@ -34,6 +44,7 @@ from weakcube_tpu_torch.models import rpn as t_rpn
 from weakcube_tpu_torch.models.layers import BatchNorm2d, apply_batch_stats
 from weakcube_tpu_torch.ops import boxes as t_boxes
 from weakcube_tpu_torch.ops import cuboids as t_cuboids
+from weakcube_tpu_torch.ops import hull as t_hull
 from weakcube_tpu_torch.ops import losses as t_losses
 from weakcube_tpu_torch.ops import roi_align as t_ra
 from weakcube_tpu_torch.ops import roi_align_cuda
@@ -80,6 +91,46 @@ def value_and_grads(jfn, tfn, args, seed=0, atol=1e-5, rtol=1e-5):
     for i, g in zip(floats, jgrads):
         got = targs[i].grad if targs[i].grad is not None else torch.zeros_like(targs[i])
         close(got, g, atol=atol, rtol=rtol, msg=f"grad of argument {i}")
+
+
+def value_and_grads64(jfn, tfn, args, seed=0, rtol=1e-9):
+    """value_and_grads in float64 (jax.enable_x64): float arguments cast to
+    float64, the value and the gradient of every float argument held to
+    rtol of its scale (the largest |entry| of JAX's). Returns JAX's value."""
+    args = [np.asarray(a, np.float64) if np.asarray(a).dtype.kind == "f" else np.asarray(a)
+            for a in args]
+    floats = [i for i, a in enumerate(args) if a.dtype.kind == "f"]
+
+    def of_floats(*fargs):
+        full = list(args)
+        for i, f in zip(floats, fargs):
+            full[i] = f
+        return jfn(*full)
+    with jax.enable_x64():
+        fargs = [args[i] for i in floats]
+        cot = np.random.default_rng(seed).normal(size=jax.eval_shape(of_floats, *fargs).shape)
+
+        def value_and_vjp(*fa):  # one compile for the value and the gradients
+            out, pull = jax.vjp(of_floats, *fa)
+            return out, pull(jnp.asarray(cot))
+        jout, jgrads = jax.jit(value_and_vjp)(*fargs)
+        jout, jgrads = np.asarray(jout), [np.asarray(g) for g in jgrads]
+    targs = [t(a) for a in args]
+    for i in floats:
+        targs[i].requires_grad_(True)
+    tout = tfn(*targs)
+    assert tout.dtype == torch.float64
+
+    def within(got, want, what):
+        scale = max(float(np.abs(want).max(initial=0.0)), 1e-300)
+        err = float(np.abs(got.detach().numpy() - want).max(initial=0.0))
+        assert err <= rtol * scale, f"{what}: max |err| {err:.3e}, scale {scale:.3e}"
+    within(tout, jout, "value")
+    (tout * t(cot)).sum().backward()
+    for i, g in zip(floats, jgrads):
+        got = targs[i].grad if targs[i].grad is not None else torch.zeros_like(targs[i])
+        within(got, g, f"grad of argument {i}")
+    return jout
 
 
 def random_boxes(rng, shape, size=100.0):
@@ -420,6 +471,190 @@ def test_weak_losses():
                 {"a": a}, {"s": a * 0 + 2.0}, u, t(fg), conf, {"a": 3.0, "s": 0.5},
                 1.0).values())),
             [per_box["a"], unc])
+
+
+# --------------------------------------- float64: the weak losses outside the recipe
+def test_focal_and_dice_f64():
+    """sigmoid_focal_loss (logits exactly 0 among them, where bce's max(x, 0)
+    and |x| tie) and dice_loss against JAX."""
+    rng = np.random.default_rng(30)
+    logits = 3 * rng.normal(size=(4, 50))
+    logits[0, :5] = 0.0
+    targets = (rng.uniform(size=(4, 50)) < 0.5).astype(np.float64)
+    targets[1] = rng.uniform(size=50)
+    for alpha, gamma in ((0.25, 2.0), (-1.0, 1.5)):
+        value_and_grads64(lambda x, y: j_losses.sigmoid_focal_loss(x, y, alpha, gamma),
+                          lambda x, y: t_losses.sigmoid_focal_loss(x, y, alpha, gamma),
+                          [logits, targets])
+    probs = rng.uniform(size=(4, 50))
+    value_and_grads64(j_losses.dice_loss, t_losses.dice_loss, [probs, targets])
+
+
+def hull_cases(rng):
+    """(6, 8, 2) corner sets on a 16 x 12 grid: general position; on integer
+    pixel coordinates (edges through pixel centres: the clip at exactly 0
+    and 1); three collinear corners and a repeated one; all collinear (the
+    hull is a segment); all coincident (no edge); partly off the grid."""
+    pts = rng.uniform(1, 11, (6, 8, 2))
+    pts[1] = rng.integers(0, 12, (8, 2))
+    pts[2, :3] = [[2.0, 2.0], [5.0, 5.0], [8.0, 8.0]]
+    pts[2, 5] = pts[2, 4]
+    pts[3] = np.stack([np.linspace(1, 14, 8), np.linspace(2, 9, 8)], -1)
+    pts[4] = [6.0, 5.0]
+    pts[5] = rng.uniform(-6, 20, (8, 2))
+    return pts
+
+
+def test_hull_edges_and_soft_hull_f64():
+    rng = np.random.default_rng(31)
+    pts = hull_cases(rng)
+    with jax.enable_x64():
+        for p in pts:
+            je, js = j_hull.hull_edges(jnp.asarray(p))
+            te, ts = t_hull.hull_edges(t(p))
+            assert te.tolist() == np.asarray(je).tolist()
+            assert ts.tolist() == np.asarray(js).tolist()
+    jfn = jax.vmap(lambda p: j_hull.soft_hull_mask(p, 12, 16))
+    mask = value_and_grads64(jfn, lambda p: t_hull.soft_hull_mask(p, 12, 16), [pts])
+    # integer corners: every pixel centre is inside, outside or on an edge
+    assert np.isin(mask[1], (0.0, 1.0)).all() and mask[1].any()
+    assert 0.0 < mask[0].mean() < 1.0 and np.all(mask[4] == 1.0) and np.all(mask[3] == 0.0)
+
+
+def test_masked_median_depth_in_boxes_f64():
+    """The median of the 32 x 32 lattice (1024 samples: the mean of the
+    middle two, which differ here, where torch.median would take the lower),
+    the centre-depth fallback of zero-area boxes (degenerate, or clipped
+    away), and pseudo_gt_z_box_loss's gradient (in z alone)."""
+    rng = np.random.default_rng(32)
+    B, S, H, W = 2, 7, 48, 64
+    depth = rng.uniform(1, 10, (B, H, W))
+    boxes = random_boxes(rng, (B, S), 60.0).astype(np.float64)
+    boxes[0, 0] = [10.0, 10.0, 10.0, 30.0]        # zero width
+    boxes[1, 1] = [70.0, 5.0, 90.0, 20.0]         # clipped away: zero area
+    wh = np.array([[64.0, 48.0], [60.0, 40.0]])
+    with jax.enable_x64():
+        want = np.asarray(j_roi_heads.masked_median_depth_in_boxes(depth, boxes, wh))
+    got = t_roi_heads.masked_median_depth_in_boxes(t(depth), t(boxes), t(wh))
+    close(got, want, atol=0, rtol=1e-15)
+    xs, ys, _ = t_roi_heads.box_lattice(t(boxes), t(wh))
+    lower = torch.median(t_roi_heads.lattice_depth(t(depth), xs, ys), -1).values
+    assert (got != lower).sum() >= 7    # the middle pairs differ
+    z = rng.uniform(1, 10, (B, S))
+    z[0, 2] = want[0, 2]                          # |z - median| at exactly 0
+    value_and_grads64(lambda zz, d, b: j_roi_heads.pseudo_gt_z_box_loss(d, b, zz, wh),
+                      lambda zz, d, b: t_roi_heads.pseudo_gt_z_box_loss(d, b, zz, t(wh)),
+                      [z, depth, boxes])
+
+
+def search_case(rng):
+    """Cubes, GT boxes, K and image sizes for the z search: general cubes;
+    cubes far off the frame (every corner clamped: all candidate areas 0,
+    hence 1e7, a tie the first candidate wins and a loss at exactly 0);
+    cubes over the whole extended frame with a GT box larger still (every
+    candidate's box clamped to the same area, the first wins); a centre far
+    left of its GT box (the flat penalty)."""
+    B, S = 2, 8
+    cubes = random_cubes(rng, (B, S)).astype(np.float64)
+    cubes[0, :2, 0] = 60.0
+    cubes[0, :2, 2] = 9.0                         # every candidate in front of the camera
+    cubes[1, :2, 2] = 0.5
+    cubes[1, :2, 3:6] = 6.0
+    K = np.tile(np.array([[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]]), (B, 1, 1))
+    wh = np.array([[128.0, 96.0], [120.0, 96.0]])
+    gt = random_boxes(rng, (B, S), 100.0).astype(np.float64)
+    gt[1, :2] = [-100.0, -100.0, 400.0, 300.0]
+    gt[0, 3] = [110.0, 10.0, 126.0, 30.0]
+    cubes[0, 3, :3] = [-6.0, 0.0, 3.0]
+    return cubes, gt, K, wh
+
+
+def test_z_area_search_loss_f64():
+    rng = np.random.default_rng(33)
+    cubes, gt, K, wh = search_case(rng)
+    out = value_and_grads64(
+        lambda c, g: j_roi_heads.z_area_search_loss(g, j_cuboids.Cubes(c), K, wh),
+        lambda c, g: t_roi_heads.z_area_search_loss(g, t_cuboids.Cubes(c), t(K), t(wh)),
+        [cubes, gt])
+    assert out[0, 0] == out[0, 1] == out[1, 0] == 0.0 and out[0, 3] == 2.5
+    assert (out > 0).sum() >= 8
+
+
+def depth_case(rng):
+    B, S, G, H, W = 2, 6, 4, 48, 64
+    depth = rng.uniform(1, 10, (B, H, W))
+    cubes = random_cubes(rng, (B, S)).astype(np.float64)
+    gt_idx = rng.integers(0, G, (B, S))
+    gt = random_boxes(rng, (B, S), 60.0).astype(np.float64)
+    wh = np.array([[64.0, 48.0], [60.0, 40.0]])
+    masks = rng.uniform(size=(B, G, 12, 16)) < 0.4
+    masks[0, 1] = False                            # an empty mask
+    masks[1, 2] = False
+    masks[1, 2, 0, 0] = True                       # a mask that misses the lattice
+    gt_idx[:, 0] = [1, 2]
+    gt[1, 0] = [30.0, 20.0, 50.0, 35.0]
+    return depth, cubes, gt_idx, gt, wh, masks
+
+
+@pytest.mark.parametrize("with_masks", [False, True])
+def test_depth_range_loss_f64(with_masks):
+    rng = np.random.default_rng(34)
+    depth, cubes, gt_idx, gt, wh, masks = depth_case(rng)
+    m = masks if with_masks else None
+    value_and_grads64(
+        lambda c, d, g: j_roi_heads.depth_range_loss(d, m, gt_idx, g, j_cuboids.Cubes(c), wh),
+        lambda c, d, g: t_roi_heads.depth_range_loss(d, None if m is None else t(m),
+                                                     t(gt_idx), g, t_cuboids.Cubes(c), t(wh)),
+        [cubes, depth, gt])
+
+
+def test_segment_loss_f64(monkeypatch):
+    """The soft hull of each RoI's bube corners against its GT mask; some
+    corners land on integer mask-grid coordinates. Against JAX with every
+    RoI in one hull pass, then in passes of 3 RoIs (the chunks' activation
+    checkpointing) against the one pass: the same values and gradients."""
+    rng = np.random.default_rng(36)
+    B, S, G = 2, 5, 3
+    wh = np.array([[64.0, 48.0], [64.0, 48.0]])
+    bube = rng.uniform(-10, 70, (B, S, 8, 2))
+    bube[0, 1] = 4.0 * rng.integers(0, 14, (8, 2))  # 1/4 scale: integer mask coordinates
+    masks = rng.uniform(size=(B, G, 12, 16)) < 0.3
+    gt_idx = rng.integers(0, G, (B, S))
+    value_and_grads64(lambda c: j_roi_heads.segment_loss(masks, gt_idx, c, wh),
+                      lambda c: t_roi_heads.segment_loss(t(masks), t(gt_idx), c, t(wh)),
+                      [bube])
+    runs = []
+    for elements in (None, 3 * 64 * 12 * 16):
+        if elements:
+            monkeypatch.setattr(t_roi_heads, "SEGMENT_CHUNK_ELEMENTS", elements)
+        c = t(bube).requires_grad_(True)
+        out = t_roi_heads.segment_loss(t(masks), t(gt_idx), c, t(wh))
+        out.sum().backward()
+        runs.append((out.detach(), c.grad))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def j_chamfer(c, gt):
+    """The JAX supervised head's chamfer (a closure inside ROIHeads3D.__call__,
+    weakcube_tpu/models/roi_heads.py), restated."""
+    d = jnp.abs(c[..., :, None, :] - gt[..., None, :, :]).sum(-1)
+    return d.min(-2).mean(-1) + d.min(-1).mean(-1)
+
+
+def test_chamfer_and_l1_corner_losses_f64():
+    """Ties: a prediction equal to its GT (every |.| at 0), a corner midway
+    between two GT corners (a tie in the nearest corner), two equidistant
+    candidates for a GT corner."""
+    rng = np.random.default_rng(37)
+    signs = np.asarray(t_cuboids._CORNER_SIGNS, np.float64)
+    gt = np.stack([signs * rng.integers(1, 4, 3) + rng.integers(-5, 5, 3) for _ in range(4)])
+    pred = gt + rng.normal(0, 0.4, gt.shape)
+    pred[0] = gt[0]
+    pred[1] = gt[1]
+    pred[1, 0] = (gt[1, 0] + gt[1, 1]) / 2
+    value_and_grads64(j_chamfer, t_roi_heads.chamfer_corner_loss, [pred, gt])
+    value_and_grads64(lambda c, g: jnp.abs(c - g).mean(axis=(-1, -2)),
+                      t_roi_heads.l1_corner_loss, [pred, gt])
 
 
 # ----------------------------------------------------- K1's plain backward

@@ -62,6 +62,8 @@ def ops(x: dict) -> list:
     (pl / mesh.world).backward()  # each rank holds the whole value: a share of it
     out["pose_alignment"] = dict(value=pl.detach(), has=has, grad=pose.grad)
 
+    out["supervised_head"] = supervised_head(rows)
+
     gen = torch.Generator().manual_seed(x["seed"])
     out["gumbel"] = sampling.gumbel(rows["gumbel_shape"].shape, gen)
     eq, inliers = plane.ransac_plane(rows["pts"], None, 0.05, 64, gen)
@@ -116,6 +118,46 @@ def train_steps(path: str) -> dict:
     return dict(replicas_equal=same, imported=imported, world=mesh.world)
 
 
+def supervised_head(rows: dict) -> dict:
+    """ROIHeads3D.forward_train (3 classes, FC 16, float64, weights from a
+    seed) on the head_* rows: FPN features at 64 px, GT with 3D boxes and
+    rotations, the injected RoIs (2 fg slots of 8), K and image sizes.
+    Returns its losses and metrics (this rank's shares), the gradients of
+    their sum with respect to the head's parameters (summed over the ranks)
+    and to the features (this rank's rows)."""
+    from weakcube_tpu_torch.config import get_cfg
+    from weakcube_tpu_torch.models.rcnn3d import init_weights
+    from weakcube_tpu_torch.ops.rotations import rotation_6d_to_matrix
+    from weakcube_tpu_torch.structures import GroundTruth, Proposals, SampledRois
+    cfg = get_cfg()
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 3, 8
+    cfg.MODEL.ROI_BOX_HEAD.FC_DIM = cfg.MODEL.ROI_CUBE_HEAD.FC_DIM = 16
+    cfg.freeze()
+    head = roi_heads.ROIHeads3D(cfg, 3, 4, np.tile([[[0.8, 0.7, 0.9], [0.3, 0.3, 0.3]]], (3, 1, 1)))
+    init_weights(head, torch.Generator().manual_seed(0))
+    head.double()
+    feats = {f"p{i}": rows[f"head_p{i}"].clone().requires_grad_(True) for i in range(2, 7)}
+    gt = GroundTruth(rows["head_gt_boxes"], rows["head_gt_classes"], rows["head_gt_valid"],
+                     rows["head_boxes3D"], rotation_6d_to_matrix(rows["head_gt_6d"]))
+    rois = SampledRois(rows["head_roi_boxes"], rows["head_roi_classes"], rows["head_gt_idx"],
+                       rows["head_fg"], rows["head_valid"])
+    n = rois.boxes.shape[0]
+    sample = roi_heads.label_and_sample_proposals
+    roi_heads.label_and_sample_proposals = lambda *a, **k: rois
+    try:
+        losses, metrics = head.forward_train(
+            feats, Proposals(torch.zeros((n, 1, 4)), torch.zeros((n, 1)),
+                             torch.zeros((n, 1), dtype=torch.bool)),
+            gt, rows["head_K"], rows["head_wh"], torch.Generator(), metrics_tick=True)
+    finally:
+        roi_heads.label_and_sample_proposals = sample
+    sum(losses.values()).backward()
+    sum_gradients([p.grad for p in head.parameters()])
+    return dict(losses={k: v.detach() for k, v in losses.items()}, metrics=metrics,
+                grads={k: p.grad for k, p in head.named_parameters()},
+                feat_grads={k: f.grad for k, f in feats.items()})
+
+
 def draws_of_one_process(x: dict) -> dict:
     """The draws `ops` makes, by one process on the global batch."""
     gen = torch.Generator().manual_seed(x["seed"])
@@ -139,7 +181,34 @@ def global_inputs(seed: int, world: int) -> dict:
         "gumbel_shape": np.zeros((n, 33)), "seed": seed,
         "pts": np.concatenate([rng.normal(size=(n, 40, 2)),
                                0.01 * rng.normal(size=(n, 40, 1))], -1),
+        **head_inputs(rng, n),
     }
+
+
+def head_inputs(rng, n: int, G: int = 3, S: int = 8) -> dict:
+    """supervised_head's global inputs: n images at 64 px."""
+    out = {f"head_p{i}": rng.normal(size=(n, 64 >> i, 64 >> i, 4)) for i in range(2, 7)}
+    xy = rng.uniform(2, 40, (n, G, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 20, (n, G, 2))], -1)
+    z = rng.uniform(2, 8, (n, G))
+    ctr = (boxes[..., :2] + boxes[..., 2:]) / 2
+    out.update(
+        head_gt_boxes=boxes, head_gt_classes=rng.integers(0, 3, (n, G)),
+        head_gt_valid=np.arange(G)[None].repeat(n, 0) < 2 + (np.arange(n)[:, None] % 2),
+        head_boxes3D=np.concatenate([ctr, z[..., None], rng.uniform(0.3, 1.5, (n, G, 3)),
+                                     (ctr - 32) * z[..., None] / 60.0, z[..., None]], -1),
+        head_gt_6d=rng.normal(size=(n, G, 6)),
+        head_K=np.tile(np.array([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]]), (n, 1, 1)),
+        head_wh=np.full((n, 2), 64.0))
+    gt_idx = rng.integers(0, 2, (n, S))
+    fg = np.arange(S)[None].repeat(n, 0) < 2
+    fg[0, 1] = False
+    rxy = rng.uniform(0, 40, (n, S, 2))
+    out.update(head_roi_boxes=np.concatenate([rxy, rxy + rng.uniform(4, 20, (n, S, 2))], -1),
+               head_roi_classes=np.where(fg, out["head_gt_classes"][np.arange(n)[:, None],
+                                                                    gt_idx], 3),
+               head_gt_idx=gt_idx, head_fg=fg, head_valid=np.ones((n, S), bool))
+    return out
 
 
 class NoTensorboard:

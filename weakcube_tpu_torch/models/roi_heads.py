@@ -6,18 +6,23 @@ the cube branch pools each detection again and decodes the cube head's
 per-class outputs into metric cubes (`decode_cube_predictions`). The
 supervised (`ROIHeads3D`) and weak (`ROIHeads3DScore`) heads share it.
 
-Training (`ROIHeads3DScore.forward_train`, the weak recipe): proposals and
-GT boxes are matched and subsampled to S slots per image
-(`label_and_sample_proposals`, fg first); the box branch takes the Fast
-R-CNN losses; the cube branch runs on the fg-capable prefix of the slots
-and takes the weak losses of cfg.loss_functions, uncertainty-weighted.
-The pooler is differentiable in the features (K1 forward, K1-bwd backward
-on the card). Without cached ground normals, pose_ground fits each image's
-ground plane by RANSAC on the batch's depth and ground maps
-(`ground_normals_from_maps`). `Cube/IoU3D` is the exact matched 3D IoU of
-the fg RoIs' cubes, computed on metric ticks only. Losses not ported yet
-('z', 'z_pseudo_gt_patch', 'depth', 'segmentation') and supervised
-`ROIHeads3D` training raise NotImplementedError (see ROADMAP.md).
+Training. Proposals and GT boxes are matched and subsampled to S slots per
+image (`label_and_sample_proposals`, fg first); the box branch takes the
+Fast R-CNN losses; with LOSS_W_3D 0 (the recipe's 2D-only pretrain) that is
+all. Otherwise the cube branch runs on the fg-capable prefix of the slots.
+The weak head (`ROIHeads3DScore`) takes the losses of cfg.loss_functions
+(iou, pose_alignment, pose_ground(2), z, z_pseudo_gt_patch or
+z_pseudo_gt_center, dims, depth, segmentation), each skipped quietly when
+the batch lacks its data, as the JAX package does. The supervised head
+(`ROIHeads3D`) takes Cube R-CNN's losses against the GT cubes: the
+disentangled corner losses (chamfer or L1 pose) or the normalised-space
+ones for each Z_TYPE, the joint corner loss, and INVERSE_Z_WEIGHT. Both
+weight them by the predicted uncertainty. The pooler is differentiable in
+the features (K1 forward, K1-bwd backward on the card). Without cached
+ground normals, pose_ground fits each image's ground plane by RANSAC on the
+batch's depth and ground maps (`ground_normals_from_maps`). `Cube/IoU3D` is
+the exact matched 3D IoU of the fg RoIs' cubes, computed on metric ticks
+only.
 """
 from __future__ import annotations
 
@@ -27,9 +32,11 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import boxes as box_ops
 from ..ops import cuboids
+from ..ops import hull as hull_ops
 from ..ops import iou3d
 from ..ops import losses as loss_ops
 from ..ops import plane as plane_ops
@@ -44,10 +51,8 @@ from .fast_rcnn import (FastRCNNConvFCHead, FastRCNNPredictor, fast_rcnn_inferen
 
 SQRT2 = math.sqrt(2.0)
 FPN_STRIDES = (4, 8, 16, 32, 64)
-# weak losses not ported yet; when they are, 'z' stops the gradient of the
-# searched depth and 'depth' that of the GT depth range, as the JAX package
-# does (roi_heads.py:454, 508)
-NOT_PORTED = ("z", "z_pseudo_gt_patch", "depth", "segmentation")
+# elements of one (RoIs, 64 pairs, MH, MW) soft-hull pass of segment_loss
+SEGMENT_CHUNK_ELEMENTS = 1 << 25
 
 
 # ---------------------------------------------------------------- sampling
@@ -335,15 +340,135 @@ def sample_depth_at(depth_maps, xy, image_wh):
 
 
 def pseudo_gt_z_point_loss(depth_maps, xy, z, image_wh):
-    return torch.abs(z - sample_depth_at(depth_maps, xy, image_wh))
+    return loss_ops.absolute(z - sample_depth_at(depth_maps, xy, image_wh))
 
 
 def dims_prior_loss(dims, classes, dims_priors):
     """Hinged z-score of the dims against the class priors: (B, S, 3)."""
     pri = dims_priors[classes.long().clamp(0, dims_priors.shape[0] - 1)]
     mean, std = pri[..., 0, :], pri[..., 1, :]
-    score = torch.abs(dims - mean) / std.clamp(min=1e-6)
+    score = loss_ops.absolute(dims - mean) / std.clamp(min=1e-6)
     return torch.maximum(score - 1.0, torch.zeros_like(score))
+
+
+def box_lattice(boxes, image_wh, grid: int = 32):
+    """A grid x grid lattice of cell centres inside each box clipped to the
+    image: (B, S, 4) -> x and y (B, S, grid) in pixels."""
+    B = boxes.shape[0]
+    b = box_ops.clip_boxes(boxes, image_wh.expand(B, 2)[:, None, :])
+    gs = (torch.arange(grid, dtype=torch.float32, device=boxes.device) + 0.5) / grid
+    xs = b[..., 0:1] + (b[..., 2:3] - b[..., 0:1]) * gs
+    ys = b[..., 1:2] + (b[..., 3:4] - b[..., 1:2]) * gs
+    return xs, ys, b
+
+
+def lattice_depth(depth_maps, xs, ys):
+    """Depth at the lattice (B, S, g) x (B, S, g) -> (B, S, g * g), y
+    major, at the pixels the lattice points fall in."""
+    B, H, W = depth_maps.shape
+    xi = xs.clamp(0, W - 1).long()
+    yi = ys.clamp(0, H - 1).long()
+    bi = torch.arange(B, device=depth_maps.device)[:, None, None, None]
+    return depth_maps[bi, yi[..., :, None], xi[..., None, :]].flatten(-2)
+
+
+def masked_median_depth_in_boxes(depth_maps, boxes, image_wh, grid: int = 32):
+    """Median depth inside each box over a fixed grid x grid lattice: the
+    mean of the middle two of the 1024 samples, as jnp.median takes it
+    (torch.median would take the lower one). Zero-area boxes take the depth
+    at their centre. No gradient."""
+    xs, ys, b = box_lattice(boxes, image_wh, grid)
+    med = torch.quantile(lattice_depth(depth_maps, xs, ys), 0.5, dim=-1)
+    ctr = torch.stack([(b[..., 0] + b[..., 2]) / 2, (b[..., 1] + b[..., 3]) / 2], -1)
+    return torch.where(box_ops.area(b) > 0, med, sample_depth_at(depth_maps, ctr, image_wh))
+
+
+def pseudo_gt_z_box_loss(depth_maps, proj_boxes, z, image_wh):
+    return loss_ops.absolute(z - masked_median_depth_in_boxes(depth_maps, proj_boxes, image_wh))
+
+
+def z_area_search_loss(gt_boxes, cubes: cuboids.Cubes, K, image_wh, max_count: int = 50):
+    """Area-matched depth search: slide each cube along z in 0.1 m steps
+    (towards the camera where its projected box is smaller than the GT
+    box, away where larger), take the first step whose projected-box area
+    is closest to the GT box's, and penalise |z - z_best| / 2 with z_best's
+    gradient stopped; a centre left of or above the GT box by more than
+    max_count px costs a flat 0.1 max_count. image_wh (B, 2)."""
+    gt_area = box_ops.area(gt_boxes)                                    # (B, S)
+    proj = cubes.to_boxes(K[:, None], image_wh[:, None])
+    z0 = cubes.centers[..., 2]
+    # jnp.linspace(0, (max_count - 1) / 10, max_count): stop * (i / (n - 1))
+    dt = torch.promote_types(z0.dtype, torch.float32)
+    stop = torch.tensor((max_count - 1) / 10.0, dtype=dt, device=z0.device)
+    frac = torch.arange(max_count - 1, dtype=dt, device=z0.device) / (max_count - 1)
+    steps = torch.cat([stop * frac, stop[None]])
+    sign = torch.where(gt_area < box_ops.area(proj), 1.0, -1.0).to(dt)
+    cand_z = z0[..., None] + sign[..., None] * steps                    # (B, S, T)
+    ctr = cubes.centers[..., None, :].expand(*cand_z.shape, 3)
+    ctr = torch.cat([ctr[..., :2], cand_z[..., None].to(ctr.dtype)], -1)
+    cand = cuboids.Cubes.from_parts(
+        ctr, cubes.dims[..., None, :].expand(*cand_z.shape, 3),
+        cubes.rotations[..., None, :, :].expand(*cand_z.shape, 3, 3))
+    cand_area = box_ops.area(cand.to_boxes(K[:, None, None], image_wh[:, None, None]))
+    cand_area = torch.where(cand_area == 0, torch.full_like(cand_area, 1e7), cand_area)
+    best = torch.argmin(torch.abs(cand_area - gt_area[..., None]), -1)  # the first on ties
+    z_best = torch.gather(cand_z, -1, best[..., None])[..., 0]
+    loss = loss_ops.absolute(z0 - z_best.detach())
+    ctr2d = (proj[..., :2] + proj[..., 2:]) / 2.0
+    inside = (ctr2d[..., 0] >= gt_boxes[..., 0] - max_count) & \
+             (ctr2d[..., 1] >= gt_boxes[..., 1] - max_count)
+    return torch.where(inside, loss, torch.full_like(loss, 0.1 * max_count)) / 2.0
+
+
+def depth_range_loss(depth_maps, masks, gt_idx, gt_boxes, cubes: cuboids.Cubes, image_wh):
+    """|(q90 - q10 of the depth) - the cube's corner-depth extent|: the
+    quantiles (linear, as jnp.nanquantile's; gradient stopped) over a 32 x 32 lattice
+    in the GT box, at the lattice points inside the RoI's GT instance mask
+    (masks (B, G, MH, MW) bool over the image frame, gathered by gt_idx),
+    or at every point where masks is None or the mask meets none."""
+    corner_z = cubes.corners()[..., 2]
+    pred_range = torch.amax(corner_z, -1) - torch.amin(corner_z, -1)   # (B, S)
+    xs, ys, _ = box_lattice(gt_boxes, image_wh)
+    vals = lattice_depth(depth_maps, xs, ys)                           # (B, S, 1024)
+    if masks is not None:
+        B, MH, MW = masks.shape[0], masks.shape[-2], masks.shape[-1]
+        wh = image_wh.expand(B, 2)
+        mx = (xs / wh[:, 0, None, None].clamp(min=1.0) * MW).clamp(0, MW - 1).long()
+        my = (ys / wh[:, 1, None, None].clamp(min=1.0) * MH).clamp(0, MH - 1).long()
+        bi = torch.arange(B, device=masks.device)[:, None, None, None]
+        sel = masks[bi, gt_idx[..., None, None], my[..., :, None], mx[..., None, :]].flatten(-2)
+        use_mask = sel.any(-1, keepdim=True)
+        vals = torch.where(sel | ~use_mask, vals, torch.full_like(vals, float("nan")))
+    gt_range = torch.nanquantile(vals, 0.9, dim=-1) - torch.nanquantile(vals, 0.1, dim=-1)
+    return loss_ops.absolute(gt_range.detach() - pred_range)
+
+
+def segment_loss(masks, gt_idx, bube_corners, image_wh):
+    """Per RoI, the mean focal loss of its cube's soft hull (the bube
+    corners rescaled into the mask grid) against its GT instance mask
+    (masks (B, G, MH, MW) bool over the image frame, gathered by gt_idx):
+    sigmoid_focal_loss(8 hull - 4, mask), the original repo's argument swap
+    undone (PARITY.md). The RoIs go through the hull in chunks of
+    SEGMENT_CHUNK_ELEMENTS, each recomputed in the backward (activation
+    checkpointing): all RoIs' (64, MH, MW) pair values at once would take
+    3.4 GB in float32 at B 25, S 128, 64 x 64. -> (B, S)."""
+    B, S = bube_corners.shape[:2]
+    MH, MW = masks.shape[-2:]
+    wh = image_wh.expand(B, 2)
+    sx = (MW / wh[:, 0].clamp(min=1.0))[:, None, None]
+    sy = (MH / wh[:, 1].clamp(min=1.0))[:, None, None]
+    corners = torch.stack([bube_corners[..., 0] * sx, bube_corners[..., 1] * sy], -1)
+    roi_masks = gather_gt(masks, gt_idx).flatten(0, 1)                 # (B S, MH, MW)
+    n = corners.shape[-2]
+
+    def chunk_loss(c, m):
+        soft = hull_ops.soft_hull_mask(c, MH, MW)
+        return loss_ops.sigmoid_focal_loss(soft * 8.0 - 4.0, m.float()).mean((-2, -1))
+
+    size = max(1, SEGMENT_CHUNK_ELEMENTS // (n * n * MH * MW))
+    out = [checkpoint(chunk_loss, c, m, use_reentrant=False)
+           for c, m in zip(corners.flatten(0, 1).split(size), roi_masks.split(size))]
+    return torch.cat(out).reshape(B, S)
 
 
 def uncert_weight_and_reduce(per_box_losses: Dict[str, torch.Tensor],
@@ -411,6 +536,13 @@ class ROIHeadsCommon(nn.Module):
                                 cx + 0.5 * w * s, cy + 0.5 * h * s], -1)
         return boxes
 
+    def sample_rois(self, generator, proposals: Proposals, gt: GroundTruth) -> SampledRois:
+        rh = self.cfg.MODEL.ROI_HEADS
+        return label_and_sample_proposals(
+            generator, proposals, gt, self.num_classes, rh.BATCH_SIZE_PER_IMAGE,
+            rh.POSITIVE_FRACTION, rh.IOU_THRESHOLDS, self.cfg.MODEL.RPN.IGNORE_THRESHOLD,
+            rh.PROPOSAL_APPEND_GT)
+
     def forward_box_train(self, features, rois: SampledRois, gt: GroundTruth):
         """Box branch losses on the sampled RoIs, and the predicted boxes of
         the matched class (no gradient)."""
@@ -461,12 +593,111 @@ class ROIHeadsCommon(nn.Module):
         return self.cube_inference(features, det, K.float())
 
 
-class ROIHeads3D(ROIHeadsCommon):
-    """Fully-supervised head; inference only in this package so far."""
+def chamfer_corner_loss(c, gt_corners):
+    """Symmetric chamfer distance between two corner sets (..., 8, 3): the
+    mean L1 distance from each corner to the other set's nearest, both
+    ways. amin splits a tie between nearest corners evenly, as jnp.min
+    does."""
+    d = loss_ops.absolute(c[..., :, None, :] - gt_corners[..., None, :, :]).sum(-1)
+    return torch.amin(d, -2).mean(-1) + torch.amin(d, -1).mean(-1)
 
-    def forward_train(self, *args, **kwargs):
-        raise NotImplementedError("supervised ROIHeads3D training is not ported to "
-                                  "PyTorch yet (ROADMAP.md)")
+
+def l1_corner_loss(c, gt_corners):
+    return loss_ops.absolute(c - gt_corners).mean((-1, -2))
+
+
+class ROIHeads3D(ROIHeadsCommon):
+    """Fully supervised Cube R-CNN head: the box branch, and a cube branch
+    trained against the GT cubes."""
+
+    def forward_train(self, features, proposals: Proposals, gt: GroundTruth, K, image_wh,
+                      generator: torch.Generator, metrics_tick=None):
+        """-> (losses, metrics), two dicts of scalar tensors."""
+        cfg = self.cfg
+        rc = cfg.MODEL.ROI_CUBE_HEAD
+        rois = self.sample_rois(generator, proposals, gt)
+        losses, _, _, _ = self.forward_box_train(features, rois, gt)
+        all_fg = rois.fg & rois.valid
+        B = global_rows(all_fg.shape)[0]  # the per-image counts are over the global batch
+        if rc.LOSS_W_3D == 0:  # 2D-only training: no cube branch
+            return losses, {"roi_head/num_fg_samples": all_fg.sum() / B}
+        rois = fg_prefix_rois(rois, cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION)
+        fg = rois.fg & rois.valid
+        dec = self.run_cube_head(features, rois.boxes, rois.classes, K)
+
+        # GT boxes3D: [proj_cx, proj_cy, z, w, h, l, 3D centre]
+        g3d = gather_gt(gt.boxes3D, rois.gt_idx)
+        gposes = gather_gt(gt.poses, rois.gt_idx)
+        gt_2d, gt_z, gt_dims = g3d[..., 0:2], g3d[..., 2], g3d[..., 3:6]
+        Kr = K[:, None]
+        gt_ctr3d = cuboids.backproject(gt_2d, gt_z, Kr)
+        gt_corners = cuboids.get_cuboid_verts_3d(torch.cat([gt_ctr3d, gt_dims], -1), gposes)
+        pred_xy = torch.stack([dec.x, dec.y], -1)
+
+        def corners(ctr, dims, pose):
+            return cuboids.get_cuboid_verts_3d(torch.cat([ctr, dims], -1), pose)
+
+        per_box: Dict[str, torch.Tensor] = {}
+        if rc.DISENTANGLED_LOSS:
+            # each loss varies one part of the prediction, GT for the rest
+            per_box["Cube/loss_z"] = l1_corner_loss(
+                corners(cuboids.backproject(gt_2d, dec.z, Kr), gt_dims, gposes), gt_corners)
+            per_box["Cube/loss_xy"] = l1_corner_loss(
+                corners(cuboids.backproject(pred_xy, gt_z, Kr), gt_dims, gposes), gt_corners)
+            per_box["Cube/loss_dims"] = l1_corner_loss(corners(gt_ctr3d, dec.dims, gposes),
+                                                       gt_corners)
+            pose_corners = corners(gt_ctr3d, gt_dims, dec.pose)
+            per_box["Cube/loss_pose"] = chamfer_corner_loss(pose_corners, gt_corners) \
+                if rc.CHAMFER_POSE else l1_corner_loss(pose_corners, gt_corners)
+        else:
+            # normalised-space losses
+            w = rois.boxes[..., 2] - rois.boxes[..., 0]
+            h = rois.boxes[..., 3] - rois.boxes[..., 1]
+            cxy = torch.stack([rois.boxes[..., 0] + 0.5 * w, rois.boxes[..., 1] + 0.5 * h], -1)
+            wh = torch.stack([w.clamp(min=1e-6), h.clamp(min=1e-6)], -1)
+            per_box["Cube/loss_xy"] = loss_ops.absolute(
+                (pred_xy - cxy) / wh - (gt_2d - cxy) / wh).mean(-1)
+            tgt = torch.log(gt_dims.clamp(min=1e-6))
+            if rc.DIMS_PRIORS_ENABLED and self.dims_priors is not None:
+                # classes clipped by num_classes here, as the JAX package does
+                pri = self.dims_priors[rois.classes.long().clamp(0, self.num_classes - 1)]
+                tgt = torch.log(gt_dims.clamp(min=1e-6) / pri[..., 0, :].clamp(min=1e-6))
+            per_box["Cube/loss_dims"] = loss_ops.absolute(dec.dims_norm - tgt).mean(-1)
+            per_box["Cube/loss_pose"] = 1.0 - rotations.so3_relative_angle(dec.pose, gposes,
+                                                                           cos_angle=True)
+            r2v = 1.0 / dec.virtual_to_real.clamp(min=1e-6)
+            if rc.Z_TYPE == "sigmoid":
+                tz = (gt_z * r2v / 100.0).clamp(0.0, 1.0)
+                per_box["Cube/loss_z"] = loss_ops.absolute(dec.z_norm - tz)
+            elif rc.Z_TYPE == "log":
+                per_box["Cube/loss_z"] = loss_ops.absolute(
+                    dec.z_norm - torch.log((gt_z * r2v).clamp(min=0.01)))
+            elif rc.Z_TYPE == "clusters" and dec.z_cluster_stats is not None:
+                mu = dec.z_cluster_stats[..., 0]
+                sig = dec.z_cluster_stats[..., 1].clamp(min=1e-6)
+                per_box["Cube/loss_z"] = loss_ops.absolute(dec.z_norm - (gt_z * r2v - mu) / sig)
+            else:  # direct
+                per_box["Cube/loss_z"] = loss_ops.absolute(dec.z - gt_z)
+        weights = {"Cube/loss_z": rc.LOSS_W_Z, "Cube/loss_xy": rc.LOSS_W_XY,
+                   "Cube/loss_dims": rc.LOSS_W_DIMS, "Cube/loss_pose": rc.LOSS_W_POSE}
+        if rc.LOSS_W_JOINT > 0:
+            joint = corners(cuboids.backproject(pred_xy, dec.z, Kr), dec.dims, dec.pose)
+            per_box["Cube/loss_joint"] = chamfer_corner_loss(joint, gt_corners) \
+                if rc.CHAMFER_POSE and rc.DISENTANGLED_LOSS else l1_corner_loss(joint, gt_corners)
+            weights["Cube/loss_joint"] = rc.LOSS_W_JOINT
+        if rc.INVERSE_Z_WEIGHT:
+            inv_w = 1.0 / torch.log(gt_z.clamp(min=math.e))
+            per_box = {k: v * inv_w for k, v in per_box.items()}
+        losses.update(uncert_weight_and_reduce(per_box, {}, dec.uncert, fg, rc.USE_CONFIDENCE,
+                                               weights, rc.LOSS_W_3D))
+        metrics = {
+            "Cube/z_error": loss_ops.masked_mean((dec.z - gt_z).abs().detach(), fg),
+            "Cube/dims_error": loss_ops.masked_mean((dec.dims - gt_dims).abs().mean(-1).detach(),
+                                                    fg),
+            "Cube/IoU3D": iou3d_train_metric(dec, gt, rois, K, fg, tick=metrics_tick),
+            "roi_head/num_fg_samples": fg.sum() / B,
+        }
+        return losses, metrics
 
 
 class ROIHeads3DScore(ROIHeadsCommon):
@@ -477,21 +708,16 @@ class ROIHeads3DScore(ROIHeadsCommon):
                       generator: torch.Generator, depth_maps=None, ground_masks=None,
                       ground_valid=None, ground_normals=None, ground_normal_valid=None,
                       instance_masks=None, metrics_tick=None):
-        """-> (losses, metrics), two dicts of scalar tensors. The RANSAC of
-        pose_ground (without ground_normals) draws from `generator` after the
-        RoI sampler."""
+        """-> (losses, metrics), two dicts of scalar tensors. A loss whose
+        data the batch lacks is left out (z_pseudo_gt_patch, z_pseudo_gt_center
+        and depth need depth maps, pose_ground depth maps or ground normals,
+        segmentation instance masks (B, G, MH, MW)). The RANSAC of
+        pose_ground (without ground_normals) draws from `generator` after
+        the RoI sampler."""
         cfg = self.cfg
         rc = cfg.MODEL.ROI_CUBE_HEAD
         loss_fns = list(cfg.loss_functions)
-        for name in NOT_PORTED:
-            if name in loss_fns:
-                raise NotImplementedError(f"the weak loss {name!r} is not ported to PyTorch "
-                                          "yet (ROADMAP.md)")
-        rois = label_and_sample_proposals(
-            generator, proposals, gt, self.num_classes,
-            cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE, cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION,
-            cfg.MODEL.ROI_HEADS.IOU_THRESHOLDS, cfg.MODEL.RPN.IGNORE_THRESHOLD,
-            cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT)
+        rois = self.sample_rois(generator, proposals, gt)
         losses, _, _, _ = self.forward_box_train(features, rois, gt)
         all_fg = rois.fg & rois.valid
         B = global_rows(all_fg.shape)[0]  # the per-image counts are over the global batch
@@ -502,7 +728,9 @@ class ROIHeads3DScore(ROIHeadsCommon):
         fg = rois.fg & rois.valid
         dec = self.run_cube_head(features, rois.boxes, rois.classes, K)
         gt_boxes_m = gather_gt(gt.boxes, rois.gt_idx)
-        proj_boxes = dec.cubes.to_boxes(K[:, None], image_wh.expand(fg.shape[0], 2)[:, None])
+        wh = image_wh.expand(fg.shape[0], 2)
+        bube = dec.cubes.bube_corners(K[:, None], wh[:, None])
+        proj_boxes = torch.cat([torch.amin(bube, -2), torch.amax(bube, -2)], -1)
 
         per_box: Dict[str, torch.Tensor] = {}
         scalar: Dict[str, torch.Tensor] = {}
@@ -531,13 +759,21 @@ class ROIHeads3DScore(ROIHeadsCommon):
                     generator, depth_maps, gm, gv, use_nth=cfg.TPU.RANSAC_USE_NTH, K=K,
                     num_hypotheses=cfg.TPU.RANSAC_HYPOTHESES)
             normals = normals.detach()
-            conf = torch.where(gv, 1.0, 0.1)[:, None]
+            conf = torch.full(gv.shape, 0.1, dtype=torch.promote_types(dec.pose.dtype, torch.float32),
+                              device=gv.device).masked_fill(gv, 1.0)[:, None]
             if "pose_ground" in loss_fns:
                 per_box["Cube/loss_normal_vec"] = pose_ground_loss(dec.pose, normals) * conf
             else:
                 per_box["Cube/loss_normal_vec"] = pose_ground2_loss(dec.pose, normals) * conf
             weights["Cube/loss_normal_vec"] = rc.LOSS_W_NORMAL_VEC
-        if depth_maps is not None and "z_pseudo_gt_center" in loss_fns:
+        if "z" in loss_fns:
+            per_box["Cube/loss_z"] = z_area_search_loss(gt_boxes_m, dec.cubes, K, wh)
+            weights["Cube/loss_z"] = rc.LOSS_W_Z
+        if depth_maps is not None and "z_pseudo_gt_patch" in loss_fns:
+            per_box["Cube/loss_pseudo_gt_z"] = pseudo_gt_z_box_loss(depth_maps, proj_boxes,
+                                                                    dec.z, image_wh)
+            weights["Cube/loss_pseudo_gt_z"] = rc.LOSS_W_Z
+        elif depth_maps is not None and "z_pseudo_gt_center" in loss_fns:
             per_box["Cube/loss_pseudo_gt_z"] = pseudo_gt_z_point_loss(
                 depth_maps, torch.stack([dec.x, dec.y], -1), dec.z, image_wh)
             weights["Cube/loss_pseudo_gt_z"] = rc.LOSS_W_Z
@@ -546,6 +782,14 @@ class ROIHeads3DScore(ROIHeadsCommon):
             for i, ax in enumerate("whl"):
                 per_box[f"Cube/loss_dims_{ax}"] = ds[..., i]
                 weights[f"Cube/loss_dims_{ax}"] = rc.LOSS_W_DIMS
+        if "depth" in loss_fns and depth_maps is not None:
+            per_box["Cube/loss_depth"] = depth_range_loss(depth_maps, instance_masks,
+                                                          rois.gt_idx, gt_boxes_m, dec.cubes,
+                                                          image_wh)
+            weights["Cube/loss_depth"] = rc.LOSS_W_DEPTH
+        if "segmentation" in loss_fns and instance_masks is not None:
+            per_box["Cube/loss_seg"] = segment_loss(instance_masks, rois.gt_idx, bube, image_wh)
+            weights["Cube/loss_seg"] = rc.LOSS_W_SEG
         losses.update(uncert_weight_and_reduce(per_box, scalar, dec.uncert, fg,
                                                rc.USE_CONFIDENCE, weights, rc.LOSS_W_3D))
         metrics = {
