@@ -38,7 +38,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      times per forward; hold K2 against the plain version on one block's
      own q, k, v from that run (contiguous copies and the projection's own
      views); a small float32 ViT-S on the card against the CPU at 98 and
-     196 px;
+     196 px; the maps stay for phase 29;
   9. time the depth forward (B16), K2 (on block 11's q, k, v made
      contiguous, and on the path's own strided views) and
      F.scaled_dot_product_attention as a yardstick in turns, and K2's plain
@@ -140,6 +140,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and K1-bwd once per step, no Cube/ key), then configs/Omni_combined.yaml
      warm-started from its model_final by MODEL.WEIGHTS_PRETRAIN for 4
      (twice per step); steps/s of each;
+ 29. (after 9) the recipe's ground pseudo-GT pipeline from phase 8's depth
+     maps (re-generated if gone): (a) depth-ransac ground maps on the card
+     (data/generate_ground_segmentations.py), their IoU with each scene's
+     true ground, and the same on the scenes' analytic depth; card vs CPU
+     on 4 maps with the same injected draws (equal masks); (b) the
+     foundation method at full width with random weights (GroundingDINO
+     Swin-T OGC: BERT-base, 6 + 6 layers, 900 queries, 768 px; SAM-HQ
+     vit_l at 1024 px; bf16; box_threshold -1): every .npz a bool map of
+     the image's shape, the CSV written; ms per image of each model and of
+     the path, peak memory, one image under the profiler; (c) small float32
+     GroundingDINO (1 + 2 layers, 16 queries, 112 px) and SAM vit_tiny (256
+     px), card vs CPU within 1e-3 of scale, the same top-k proposals; (d)
+     filter_ground, the priors CLI, the dataset loader (ground_image_path
+     only outside no_ground_idx.csv) and one mapper batch with finite
+     cached ground normals from the written maps;
  14. print the kernels line (K1, K1-bwd, K2; their launches on every path
      above) and, last, {"ok": true, "device": {...}}.
 
@@ -397,6 +412,28 @@ def profile_forward(model, batch, top: int = 12):
     return n_copies
 
 
+def profile_ops(fn, arg, top: int = 14):
+    """profile_forward's kernel table for one call of fn(arg), then the
+    operators (aten::...) that launched the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    profile_forward(fn, arg, top=top)
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        fn(arg)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in ops)
+    if total == 0:
+        print("[profile] no operator recorded device time")
+        return
+    print(f"[profile] the operators by the device time of the kernels they launched "
+          f"({total / 1e3:.3f} ms):")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / total:5.1f}%"
+              f" x{e.count:<5d} {e.key}")
+
 def check_grads(name, got, want, atol, rtol):
     """check_close over the per-level gradients of K1-bwd, laid end to end."""
     import torch
@@ -455,13 +492,12 @@ def large_boxes(B, R, size, gen, device):
     return torch.cat([c - side[..., None] / 2, c + side[..., None] / 2], -1).contiguous()
 
 
-def depth_phases(dev):
+def depth_phases(dev, artifacts_root):
     """Phases 7-9: K2 against its plain version, the depth pseudo-GT path at
     full width, the small depth model card vs CPU, timings. Returns K2's
-    entry of the kernels line."""
-    import shutil
-    import tempfile
-
+    entry of the kernels line and phase 8's run (its records, the
+    artifacts_root/depth_maps it wrote, K2's launches), which phase 29
+    continues from."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -513,7 +549,7 @@ def depth_phases(dev):
             captured.append(out.clone())
     hook = attn.qkv.register_forward_hook(grab_qkv)
     records = synthetic.make_dataset(DEPTH_IMAGES)
-    out_dir = tempfile.mkdtemp(prefix="depth_maps_")
+    out_dir = os.path.join(artifacts_root, "depth_maps")
     roi_align_cuda.multilevel_roi_align.launches = K2.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -541,7 +577,6 @@ def depth_phases(dev):
         if not np.isfinite(d).all() or d.min() < 0 or d.max() > 20:
             fail(f"{path}: depth not finite or outside [0, 20] m")
         stds.append(float(d.astype(np.float32).std()))
-    shutil.rmtree(out_dir)
     if min(stds) <= 1e-3:
         fail(f"degenerate depth maps (least std {min(stds):.2e} m)")
     print(f"[depth] generate(): {len(records)} maps of {records[0]['height']}x"
@@ -619,11 +654,273 @@ def depth_phases(dev):
     if n_copies is not None and n_copies > 28:
         fail(f"the depth forward launched {n_copies} layout copies, expected at most 28 "
              "(no q, k, v or output copies around K2)")
-    return {"name": "flash_attention (non-causal attention fwd), per launch at "
-                    f"{'x'.join(map(str, q.shape))} {str(q.dtype)[6:]}",
-            "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-            "launches": k2_launches, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    return ({"name": "flash_attention (non-causal attention fwd), per launch at "
+                     f"{'x'.join(map(str, q.shape))} {str(q.dtype)[6:]}",
+             "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+             "launches": k2_launches, "max_abs_err": max(errs), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms},
+            {"records": records, "depth_dir": out_dir, "k2_launches": k2_launches})
+
+
+PGT_GDINO_SIDE = 768     # GroundingDINO's input square in the pipeline
+PGT_SAM_VARIANT = "vit_l"  # the recipe's SAM-HQ (generate_ground_segmentations --sam-variant)
+
+
+def write_omni3d_json(records, path, categories):
+    """The records (data/synthetic.py) as an Omni3D-format JSON, as
+    data/datasets.py::load_omni3d_json reads one."""
+    import numpy as np
+    images, annos = [], []
+    for r in records:
+        images.append({"id": r["image_id"], "file_path": f"{r['image_id']}.png",
+                       "width": r["width"], "height": r["height"], "K": r["K"], "dataset_id": 0})
+        for a in r["annotations"]:
+            box = [float(v) for v in a["bbox"]]
+            annos.append({"image_id": r["image_id"], "category_id": a["category_id"],
+                          "bbox2D_tight": box, "bbox2D_proj": box, "bbox2D_trunc": box,
+                          "center_cam": [float(v) for v in a["center_cam"]],
+                          "dimensions": [float(v) for v in a["dimensions"]],
+                          "R_cam": np.asarray(a["pose"]).tolist(), "behind_camera": False,
+                          "valid3D": True, "visibility": 1.0, "truncation": 0.0})
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": annos,
+                   "categories": [{"id": i, "name": n} for i, n in enumerate(categories)]}, f)
+
+
+def iou(a, b) -> float:
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
+    """Phase 29: the recipe's ground pseudo-GT pipeline from phase 8's depth
+    maps (the K2 path) to the artefacts training reads: (a) depth-ransac
+    ground maps on the card, their IoU with the scenes' true ground, card vs
+    CPU on 4 maps with the same draws; (b) foundation maps at full width
+    (GroundingDINO Swin-T OGC at 768 px, SAM-HQ vit_l at 1024 px, bf16,
+    random weights from seeds), timed, peak memory, one image profiled; (c)
+    small float32 GroundingDINO and SAM, card vs CPU; (d) filter_ground,
+    the priors CLI, the dataset loader and one mapper batch on the maps.
+    Returns K2's launches on this path."""
+    import numpy as np
+    import torch
+    from weakcube_tpu_torch.data import datasets as ds
+    from weakcube_tpu_torch.data import filter_ground, synthetic
+    from weakcube_tpu_torch.data import generate_ground_segmentations as ggs
+    from weakcube_tpu_torch.data.build import build_train_batches
+    from weakcube_tpu_torch.data.generate_depth_maps import generate as generate_depth
+    from weakcube_tpu_torch.data.generate_depth_maps import load_model
+    from weakcube_tpu_torch.data.pseudo_gt import grounding_dino as gd
+    from weakcube_tpu_torch.data.pseudo_gt import sam as sam_mod
+    from weakcube_tpu_torch.entry import flagship_cfg
+    from weakcube_tpu_torch.ops import flash_attention_cuda
+    from weakcube_tpu_torch.tools import priors as priors_cli
+
+    K2 = flash_attention_cuda.flash_attention
+    records, depth_dir = depth_run["records"], depth_run["depth_dir"]
+    k2_launches = 0  # K2's launches beyond phase 8's, were its maps gone
+    if not all(os.path.exists(os.path.join(depth_dir, f"{r['image_id']}.npz")) for r in records):
+        K2.launches = 0
+        generate_depth(records, depth_dir, batch_size=DEPTH_BATCH, device=dev,
+                       image_loader=lambda r: synthetic.render_image(r["_scene"]))
+        torch.cuda.synchronize()
+        k2_launches = K2.launches
+        print(f"[pgt] phase 8's depth maps were gone: re-generated, K2 launches {k2_launches}")
+    truth = {r["image_id"]: synthetic.ground_mask(r["_scene"]) for r in records}
+
+    # -- (a) depth-ransac ground maps on the card ----------------------------
+    ground_dir = os.path.join(artifacts_root, "ground_maps")
+    res = ggs.generate(records, ground_dir, depth_dir, artifacts_root=artifacts_root, device=dev)
+    ious = []
+    for r in records:
+        path = os.path.join(ground_dir, f"{r['image_id']}.npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                m = z["ground"]
+            if m.dtype != bool or m.shape != (r["height"], r["width"]):
+                fail(f"{path}: ground {m.dtype} {m.shape}")
+            ious.append(iou(m, truth[r["image_id"]]))
+        else:
+            ious.append(0.0)
+    if res["written"] + len(res["no_ground"]) != len(records):
+        fail(f"depth-ransac: {res['written']} maps and {len(res['no_ground'])} no-ground ids "
+             f"for {len(records)} records")
+    ms = res["image_ms"][1:]
+    print(f"[pgt] {card}: depth-ransac on phase 8's K2 depth maps (random ViT-L weights): "
+          f"{res['written']} maps, {len(res['no_ground'])} no-ground ids; IoU with the true "
+          f"ground median {statistics.median(ious):.4f}, min {min(ious):.4f} (no map: 0); "
+          f"{statistics.median(ms):.3f} ms per image (median of {len(ms)}; {min(ms):.3f}-"
+          f"{max(ms):.3f})")
+    # the --synthetic CLI's analytic depth: the same RANSAC on true geometry
+    sdir = os.path.join(artifacts_root, "analytic")
+    res_a = ggs.generate(records, os.path.join(sdir, "ground_maps"), "unused", artifacts_root=sdir,
+                         depth_loader=lambda r: synthetic.render_depth(r["_scene"]), device=dev)
+    ious_a = []
+    for r in records:
+        path = os.path.join(sdir, "ground_maps", f"{r['image_id']}.npz")
+        ok = os.path.exists(path)
+        if ok:
+            with np.load(path) as z:
+                ious_a.append(iou(z["ground"], truth[r["image_id"]]))
+        else:
+            ious_a.append(0.0)
+    ms = res_a["image_ms"][1:]
+    print(f"[pgt] {card}: depth-ransac on the scenes' analytic depth (the --synthetic CLI): "
+          f"{res_a['written']} maps; IoU median {statistics.median(ious_a):.4f}, min "
+          f"{min(ious_a):.4f}; {statistics.median(ms):.3f} ms per image")
+    if statistics.median(ious_a) < 0.5:
+        fail(f"depth-ransac on analytic depth: median IoU {statistics.median(ious_a):.4f} "
+             "with the true ground")
+    # card vs CPU, 4 maps of the pipeline, the same injected draws
+    rng = np.random.default_rng(29)
+    for r in records[:4]:
+        with np.load(os.path.join(depth_dir, f"{r['image_id']}.npz")) as z:
+            d = z["depth"].astype(np.float32)
+        K = np.asarray(r["K"], np.float32)
+        draws = rng.integers(0, d[::4, ::4].size, (ggs.NUM_HYPOTHESES, 3))
+        on_card = ggs.ground_from_depth_ransac(d, K, draws=draws, device=dev)
+        on_cpu = ggs.ground_from_depth_ransac(d, K, draws=draws, device="cpu")
+        if not np.array_equal(on_card, on_cpu):
+            fail(f"depth-ransac image {r['image_id']}: card and CPU masks differ in "
+                 f"{int((on_card != on_cpu).sum())} pixels")
+    print("[pgt] depth-ransac card vs CPU on 4 of the pipeline's maps, the same injected draws: "
+          "equal masks")
+
+    # -- (b) foundation ground maps at full width ----------------------------
+    t = time.time()
+    gdino = gd.init_random_(gd.GroundingDINO(), seed=0).to(dev, torch.bfloat16).eval()
+    sam = sam_mod.init_random_(sam_mod.Sam(PGT_SAM_VARIANT), seed=1).to(dev, torch.bfloat16).eval()
+    torch.cuda.synchronize()
+    print(f"[pgt] GroundingDINO Swin-T OGC (BERT-base, 6 + 6 layers, 900 queries) "
+          f"{sum(p.numel() for p in gdino.parameters()) / 1e6:.1f} M params, SAM-HQ "
+          f"{PGT_SAM_VARIANT} {sum(p.numel() for p in sam.parameters()) / 1e6:.1f} M params, "
+          f"bf16, random weights (seeds 0, 1), built in {time.time() - t:.1f} s")
+    # an artifacts root of its own beside phase 8's depth maps: (d) hands it
+    # to the loader and the mapper
+    fdir = os.path.join(artifacts_root, "foundation")
+    os.makedirs(fdir)
+    os.symlink(os.path.abspath(depth_dir), os.path.join(fdir, "depth_maps"))
+    load = lambda r: synthetic.render_image(r["_scene"])  # noqa: E731
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    res_f = ggs.generate(records, os.path.join(fdir, "ground_maps"), "unused", "foundation",
+                         artifacts_root=fdir, foundation_models=(gdino, sam), image_loader=load,
+                         box_threshold=-1.0, gdino_side=PGT_GDINO_SIDE)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_maps = 0
+    for r in records:
+        path = os.path.join(fdir, "ground_maps", f"{r['image_id']}.npz")
+        if os.path.exists(path):
+            n_maps += 1
+            with np.load(path) as z:
+                m = z["ground"]
+            if m.dtype != bool or m.shape != (r["height"], r["width"]):
+                fail(f"{path}: ground {m.dtype} {m.shape}")
+    csv_path = os.path.join(fdir, "no_ground_idx.csv")
+    if not os.path.exists(csv_path):
+        fail("the foundation method wrote no no_ground_idx.csv")
+    with open(csv_path) as f:
+        n_csv = sum(1 for line in f if line.strip())
+    if n_maps != res_f["written"] or n_maps + n_csv != len(records) or \
+            len(res_f["sam_ms"]) != len(records):
+        fail(f"foundation: {n_maps} maps, {n_csv} CSV lines, {len(res_f['sam_ms'])} SAM calls "
+             f"for {len(records)} records")
+    g_ms, s_ms, i_ms = (statistics.median(res_f[k][1:]) for k in ("gdino_ms", "sam_ms", "image_ms"))
+    print(f"[pgt] {card}: foundation (box_threshold -1: every image reaches SAM) on "
+          f"{len(records)} {records[0]['width']}x{records[0]['height']} images: {n_maps} maps, "
+          f"{n_csv} no-ground ids; per image (medians after the first) GroundingDINO at "
+          f"{PGT_GDINO_SIDE} px {g_ms:.3f} ms, SAM-HQ {PGT_SAM_VARIANT} at "
+          f"{sam_mod.IMG_SIZE} px {s_ms:.3f} ms, the whole path {i_ms:.3f} ms (host resizes "
+          f"and the npz write included; first image {res_f['image_ms'][0]:.1f} ms); peak "
+          f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the models)")
+    profile_ops(lambda img: ggs.foundation_ground_mask(gdino, sam, img, -1.0, PGT_GDINO_SIDE),
+                load(records[0]))
+    del gdino, sam
+    torch.cuda.empty_cache()
+
+    # -- (c) small float32 models, card against CPU ----------------------------
+    tol = 1e-3  # of the output's largest magnitude: float32, TF32 off, sums in other orders
+    m_cpu = gd.init_random_(gd.GroundingDINO(1, 2, 16), seed=2).eval()
+    m_gpu = gd.init_random_(gd.GroundingDINO(1, 2, 16), seed=2).to(dev).eval()
+    x = torch.from_numpy(np.random.default_rng(30).normal(size=(1, 112, 112, 3)).astype(np.float32))
+    tokens, tmask = ggs.prompt_tokens("cpu")
+    attn, pos, _ = gd.build_text_masks(tokens.numpy())
+    picked = {}
+    for name, m, d in (("cpu", m_cpu, "cpu"), ("card", m_gpu, dev)):
+        real = m.select_queries
+        m.select_queries = lambda *a, real=real, name=name: picked.setdefault(name, real(*a))
+        args = [t.to(d) for t in (x, tokens, tmask, torch.from_numpy(attn), torch.from_numpy(pos))]
+        with torch.inference_mode():
+            picked[name + "_out"] = [o.cpu() for o in m(*args)]
+    errs = []
+    for i, what in enumerate(("boxes", "logits")):
+        a, b = picked["card_out"][i], picked["cpu_out"][i]
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            fail(f"small GroundingDINO: {what} finite in other places on the card and the CPU")
+        err = (a[fin] - b[fin]).abs().max().item() / b[fin].abs().max().item()
+        errs.append(err)
+        if not err <= tol:
+            fail(f"small GroundingDINO: {what} card vs CPU {err:.3e} of scale (tolerance {tol})")
+    sets = [set(picked[n][1][0].tolist()) for n in ("card", "cpu")]
+    if sets[0] != sets[1]:
+        fail(f"small GroundingDINO: top-k proposals differ: {sorted(sets[0] ^ sets[1])}")
+    s_cpu = sam_mod.init_random_(sam_mod.Sam("vit_tiny", 256), seed=3).eval()
+    s_gpu = sam_mod.init_random_(sam_mod.Sam("vit_tiny", 256), seed=3).to(dev).eval()
+    xs = torch.from_numpy(np.random.default_rng(31).normal(size=(1, 256, 256, 3)).astype(np.float32))
+    boxes = torch.tensor([[[100.0, 150.0, 700.0, 900.0], [-20.0, 0.0, 1024.0, 400.0]]])
+    with torch.inference_mode():
+        a, b = s_gpu(xs.to(dev), boxes.to(dev)).cpu(), s_cpu(xs, boxes)
+    err = (a - b).abs().max().item() / b.abs().max().item()
+    if not err <= tol:
+        fail(f"small SAM: card vs CPU {err:.3e} of scale (tolerance {tol})")
+    print(f"[reference] small float32 GroundingDINO (1 enhancer, 2 decoders, 16 queries, 112 px), "
+          f"card vs CPU: boxes {errs[0]:.3e}, logits {errs[1]:.3e} of scale, the same 16 top-k "
+          f"proposals; SAM-HQ vit_tiny at 256 px {err:.3e} of scale (tolerance {tol} of scale)")
+
+    # -- (d) the recipe's steps 3-4 and the hand-off to training -------------
+    removed = [filter_ground.main(["--ground-dir", os.path.join(root, "ground_maps"),
+                                   "--csv", os.path.join(root, "no_ground_idx.csv")])
+               for root in (artifacts_root, fdir)]
+    pri = priors_cli.main(["--config-file", os.path.join(HERE, "configs/Omni_combined.yaml"),
+                           "--synthetic", str(len(records))])
+    if not np.isfinite(pri["priors_dims_per_cat"]).all():
+        fail("the priors CLI gave non-finite dimension priors")
+    # the foundation root (its maps, its CSV, phase 8's depth maps) as a dataset
+    json_path = os.path.join(fdir, "synthetic_pgt.json")
+    write_omni3d_json(records, json_path, synthetic.CATEGORIES)
+    fs = ds.get_filter_settings_from_cfg(None)
+    fs["category_names"] = list(synthetic.CATEGORIES)
+    loaded = ds.load_omni3d_json(json_path, fdir, "synthetic_pgt", fs, artifacts_root=fdir)
+    with open(os.path.join(fdir, "no_ground_idx.csv")) as f:
+        no_ground = {int(line.split(",")[0]) for line in f if line.strip()}
+    for r in loaded:
+        iid = r["image_id"]
+        has_map = os.path.exists(os.path.join(fdir, "ground_maps", f"{iid}.npz"))
+        if ("ground_image_path" in r) != (has_map and iid not in no_ground):
+            fail(f"loader: image {iid} ground_image_path {'ground_image_path' in r}, map "
+                 f"{has_map}, in no_ground_idx.csv {iid in no_ground}")
+        if "depth_image_path" not in r:
+            fail(f"loader: image {iid} has no depth_image_path")
+    n_attached = sum("ground_image_path" in r for r in loaded)
+    if n_attached == 0:
+        fail("loader: no ground map attached")
+    scenes = {r["image_id"]: r["_scene"] for r in records}
+    loaders = {"image": lambda r: synthetic.render_image(scenes[r["image_id"]]),
+               "depth": lambda r: ds.load_npz_map(r["depth_image_path"]),
+               "ground": lambda r: ds.load_npz_map(r["ground_image_path"])
+               if "ground_image_path" in r else None}
+    batch = next(build_train_batches(flagship_cfg(512), loaded, batch_size=8, loaders=loaders))
+    n, ok = batch["ground_normal"], batch["ground_normal_valid"]
+    if not np.isfinite(n).all() or not ok.any() or not batch["ground_valid"].any():
+        fail(f"mapper batch: cached ground normals {n} valid {ok}, ground maps valid "
+             f"{batch['ground_valid']}")
+    print(f"[pgt] filter_ground removed {removed[0]} depth-ransac and {removed[1]} foundation "
+          f"maps; priors CLI: {len(pri['priors_dims_per_cat'])} categories, finite; the loader "
+          f"attached {n_attached} foundation ground maps to {len(loaded)} records ({len(no_ground)} "
+          f"ids in its no_ground_idx.csv); one mapper batch of 8 from the written depth and "
+          f"ground maps: {int(batch['ground_valid'].sum())} ground masks, cached ground normals "
+          f"finite, {int(ok.sum())} valid")
+    return k2_launches
 
 
 def k1_backward_checks(dev, fwd_levels, fwd_boxes):
@@ -2675,9 +2972,24 @@ def main() -> None:
     del model, feats, levels, calls, det, det2d, props
     torch.cuda.empty_cache()
 
-    # -- 7.-9. K2 and the depth pseudo-GT path -------------------------------
-    k2 = depth_phases(dev)
+    # -- 7.-9. K2 and the depth pseudo-GT path; 29. the ground pseudo-GT
+    # pipeline from phase 8's depth maps ---------------------------------------
+    import shutil
+    import tempfile
+    pgt_root = tempfile.mkdtemp(prefix="chip_smoke_pgt_")
+    try:
+        k2, depth_run = depth_phases(dev, pgt_root)
+        torch.cuda.empty_cache()
+        t = time.time()
+        pgt_k2 = pseudo_gt_phase(dev, depth_run, pgt_root, card)
+        print(f"[phase] 29 (the pseudo-GT pipeline) took {time.time() - t:.1f} s")
+    finally:
+        shutil.rmtree(pgt_root, ignore_errors=True)
     torch.cuda.empty_cache()
+    k2 = dict(k2, launches=k2["launches"] + pgt_k2, launches_by_path={
+        f"depth pseudo-GT (phase 8: {DEPTH_IMAGES} images, b{DEPTH_BATCH})": k2["launches"],
+        "pseudo-GT pipeline (phase 8 → 29): the depth maps the ground maps read":
+            depth_run["k2_launches"] + pgt_k2})
 
     # -- 11.-13. the training step ---------------------------------------------
     t = time.time()
@@ -2703,8 +3015,6 @@ def main() -> None:
     # -- 15.-22. the train CLI, the in-graph ground plane, IoU3D, RANSAC; the
     # eval CLI on the train CLI's checkpoint, K1 at its shapes, the evaluator
     # card vs CPU, periodic evaluation, vis and the demo ----------------------
-    import shutil
-    import tempfile
     cli_out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     rep = {}
     try:

@@ -44,7 +44,11 @@ def test_import_leaves_jax_out():
             "weakcube_tpu_torch.tools.train_net, weakcube_tpu_torch.tools.eval_net, "
             "weakcube_tpu_torch.tools.demo, weakcube_tpu_torch.evaluation, "
             "weakcube_tpu_torch.evaluation.omni3d_eval, weakcube_tpu_torch.evaluation._native, "
-            "weakcube_tpu_torch.vis, weakcube_tpu_torch.vis.logperf, weakcube_tpu_torch.vis.vis; "
+            "weakcube_tpu_torch.vis, weakcube_tpu_torch.vis.logperf, weakcube_tpu_torch.vis.vis, "
+            "weakcube_tpu_torch.data.pseudo_gt, weakcube_tpu_torch.data.pseudo_gt.swin, "
+            "weakcube_tpu_torch.data.pseudo_gt.grounding_dino, weakcube_tpu_torch.data.pseudo_gt.sam, "
+            "weakcube_tpu_torch.data.generate_ground_segmentations, "
+            "weakcube_tpu_torch.data.filter_ground, weakcube_tpu_torch.tools.priors; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -22,8 +22,11 @@ unshared cube-head branches.
 gradient, an update, a per-parameter label code) onto the port's parameter
 names the same way, without the BatchNorm running statistics.
 
-`dav2_flax_to_torch(params, variant)` does the same for the Depth Anything
-V2 pseudo-GT model (below).
+`dav2_flax_to_torch(params, variant)`, `gdino_flax_to_torch(params)` and
+`sam_flax_to_torch(params, variant)` do the same for the pseudo-GT models
+(below): Depth Anything V2, GroundingDINO and SAM-HQ. flax's ConvTranspose
+kernel (kh, kw, in, out), applied without a spatial flip, becomes torch's
+(in, out, kh, kw) flipped in H and W.
 """
 from __future__ import annotations
 
@@ -182,3 +185,246 @@ def dav2_flax_to_torch(params: Mapping, variant: str = "vitl") -> Dict[str, torc
     _dav2_conv(sd, "depth_head.scratch.output_conv2.0", hd["out_conv2"])
     _dav2_conv(sd, "depth_head.scratch.output_conv2.2", hd["out_conv3"])
     return sd
+
+
+def _dense(sd: Dict[str, torch.Tensor], name: str, leaf: Mapping) -> None:
+    """flax Dense (in, out) -> torch Linear (out, in)."""
+    sd[name + ".weight"] = _t(np.asarray(leaf["kernel"]).T)
+    if "bias" in leaf:
+        sd[name + ".bias"] = _t(leaf["bias"])
+
+
+def _norm(sd: Dict[str, torch.Tensor], name: str, leaf: Mapping) -> None:
+    sd[name + ".weight"] = _t(leaf["scale"])
+    sd[name + ".bias"] = _t(leaf["bias"])
+
+
+def _conv_transpose(sd: Dict[str, torch.Tensor], name: str, leaf: Mapping) -> None:
+    """flax ConvTranspose (kh, kw, in, out), not flipped -> torch
+    ConvTranspose2d (in, out, kh, kw), flipped in H and W."""
+    k = np.asarray(leaf["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    sd[name + ".weight"] = _t(k)
+    sd[name + ".bias"] = _t(leaf["bias"])
+
+
+def _mha(sd: Dict[str, torch.Tensor], name: str, leaves: Mapping, prefix: str = "",
+         out: str = "out") -> None:
+    """The JAX package's separate q, k, v and output Denses -> nn.MultiheadAttention's
+    in_proj_weight / in_proj_bias / out_proj."""
+    q, k, v = (leaves[prefix + x] for x in ("q", "k", "v"))
+    sd[name + ".in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(x["kernel"]).T for x in (q, k, v)]))
+    sd[name + ".in_proj_bias"] = _t(np.concatenate([np.asarray(x["bias"]) for x in (q, k, v)]))
+    _dense(sd, name + ".out_proj", leaves[prefix + out])
+
+
+def _mlp(sd: Dict[str, torch.Tensor], name: str, leaf: Mapping) -> None:
+    for i in range(len(leaf)):
+        _dense(sd, f"{name}.layers.{i}", leaf[f"l{i}"])
+
+
+def _deform(sd: Dict[str, torch.Tensor], name: str, leaf: Mapping) -> None:
+    for ours, theirs in (("value_proj", "value_proj"), ("sampling_offsets", "offsets"),
+                         ("attention_weights", "attn_weights"), ("output_proj", "out_proj")):
+        _dense(sd, f"{name}.{ours}", leaf[theirs])
+
+
+def swin_flax_to_torch(p: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The JAX SwinT tree -> data/pseudo_gt/swin.py::SwinT's state dict
+    (under `prefix`). Both concatenate the patch merge in one order."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dav2_conv(sd, prefix + "patch_embed.proj", p["patch_embed"])
+    _norm(sd, prefix + "patch_embed.norm", p["patch_norm"])
+    blocks = sorted(k for k in p if re.fullmatch(r"stage\d+_block\d+", k))
+    for key in blocks:
+        si, bi = map(int, re.fullmatch(r"stage(\d+)_block(\d+)", key).groups())
+        b, blk = f"{prefix}layers.{si}.blocks.{bi}.", p[key]
+        _norm(sd, b + "norm1", blk["norm1"])
+        _dense(sd, b + "attn.qkv", blk["attn"]["qkv"])
+        _dense(sd, b + "attn.proj", blk["attn"]["proj"])
+        sd[b + "attn.relative_position_bias_table"] = _t(blk["attn"]["rel_bias_table"])
+        _norm(sd, b + "norm2", blk["norm2"])
+        _dense(sd, b + "mlp.fc1", blk["mlp_fc1"])
+        _dense(sd, b + "mlp.fc2", blk["mlp_fc2"])
+    for key in p:
+        m = re.fullmatch(r"(merge_norm|merge_reduce|out_norm)(\d+)", key)
+        if m and m[1] == "merge_norm":
+            _norm(sd, f"{prefix}layers.{m[2]}.downsample.norm", p[key])
+        elif m and m[1] == "merge_reduce":
+            _dense(sd, f"{prefix}layers.{m[2]}.downsample.reduction", p[key])
+        elif m:
+            _norm(sd, f"{prefix}norm{m[2]}", p[key])
+    return sd
+
+
+def bert_layer_flax_to_torch(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    """The JAX BertLayer (q, k, v, attn_out, ln1, ffn1, ffn2, ln2) -> HF names."""
+    for ours, theirs in (("attention.self.query", "q"), ("attention.self.key", "k"),
+                         ("attention.self.value", "v"), ("attention.output.dense", "attn_out"),
+                         ("intermediate.dense", "ffn1"), ("output.dense", "ffn2")):
+        _dense(sd, f"{name}.{ours}", p[theirs])
+    _norm(sd, f"{name}.attention.output.LayerNorm", p["ln1"])
+    _norm(sd, f"{name}.output.LayerNorm", p["ln2"])
+
+
+def bert_flax_to_torch(p: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    sd[prefix + "embeddings.word_embeddings.weight"] = _t(p["tok"]["embedding"])
+    sd[prefix + "embeddings.position_embeddings.weight"] = _t(np.asarray(p["pos"])[0])
+    _norm(sd, prefix + "embeddings.LayerNorm", p["emb_ln"])
+    for key in p:
+        m = re.fullmatch(r"layer(\d+)", key)
+        if m:
+            bert_layer_flax_to_torch(sd, f"{prefix}encoder.layer.{m[1]}", p[key])
+    return sd
+
+
+def fusion_flax_to_torch(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    _norm(sd, name + ".layer_norm_v", p["ln_v"])
+    _norm(sd, name + ".layer_norm_l", p["ln_l"])
+    for proj in ("v_proj", "l_proj", "values_v_proj", "values_l_proj", "out_v_proj",
+                 "out_l_proj"):
+        _dense(sd, f"{name}.attn.{proj}", p[proj])
+    sd[name + ".gamma_v"] = _t(p["gamma_v"])
+    sd[name + ".gamma_l"] = _t(p["gamma_l"])
+
+
+def text_layer_flax_to_torch(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    """The enhancer's text BertLayer -> TextEnhancerLayer (released names)."""
+    _mha(sd, name + ".self_attn", p, out="attn_out")
+    _norm(sd, name + ".norm1", p["ln1"])
+    _dense(sd, name + ".linear1", p["ffn1"])
+    _dense(sd, name + ".linear2", p["ffn2"])
+    _norm(sd, name + ".norm2", p["ln2"])
+
+
+def image_layer_flax_to_torch(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    """The enhancer's deformable part -> DeformableEncoderLayer."""
+    _deform(sd, name + ".self_attn", p["deform"])
+    _norm(sd, name + ".norm1", p["ln1"])
+    _dense(sd, name + ".linear1", p["ffn1"])
+    _dense(sd, name + ".linear2", p["ffn2"])
+    _norm(sd, name + ".norm2", p["ln2"])
+
+
+def decoder_layer_flax_to_torch(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    _mha(sd, name + ".self_attn", p, "self_")
+    _mha(sd, name + ".ca_text", p, "txt_cross_")
+    _deform(sd, name + ".cross_attn", p["deform"])
+    for ours, theirs in (("norm2", "ln_sa"), ("catext_norm", "ln_txt"), ("norm1", "ln_img"),
+                         ("norm3", "ln_ffn")):
+        _norm(sd, f"{name}.{ours}", p[theirs])
+    _dense(sd, name + ".linear1", p["ffn1"])
+    _dense(sd, name + ".linear2", p["ffn2"])
+
+
+def gdino_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's GroundingDINO parameter tree (nested dicts of numpy
+    arrays) -> the state dict of data/pseudo_gt/grounding_dino.py::
+    GroundingDINO, whose names are the released checkpoint's. Its
+    enhancer{i} splits into transformer.encoder.fusion_layers / text_layers /
+    layers.{i}."""
+    sd = swin_flax_to_torch(params["backbone"], "backbone.0.")
+    sd.update(bert_flax_to_torch(params["bert"], "bert."))
+    _dense(sd, "feat_map", params["text_proj"])
+    for i in range(4):
+        _dav2_conv(sd, f"input_proj.{i}.0", params[f"input_proj{i}"])
+        _norm(sd, f"input_proj.{i}.1", params[f"input_gn{i}"])
+    tr = "transformer."
+    sd[tr + "level_embed"] = _t(params["level_embed"])
+    for key in params:
+        m = re.fullmatch(r"(enhancer|decoder)(\d+)", key)
+        if m and m[1] == "enhancer":
+            e, i = params[key], m[2]
+            fusion_flax_to_torch(sd, f"{tr}encoder.fusion_layers.{i}", e["fusion"])
+            text_layer_flax_to_torch(sd, f"{tr}encoder.text_layers.{i}", e["txt_layer"])
+            image_layer_flax_to_torch(sd, f"{tr}encoder.layers.{i}", e)
+        elif m:
+            decoder_layer_flax_to_torch(sd, f"{tr}decoder.layers.{m[2]}", params[key])
+    _dense(sd, tr + "enc_output", params["enc_output"])
+    _norm(sd, tr + "enc_output_norm", params["enc_output_norm"])
+    _mlp(sd, tr + "enc_out_bbox_embed", params["enc_out_bbox_embed"])
+    sd[tr + "tgt_embed.weight"] = _t(params["tgt_embed"])
+    _mlp(sd, tr + "decoder.ref_point_head", params["ref_point_head"])
+    _mlp(sd, tr + "decoder.bbox_embed.0", params["bbox_embed"])
+    _norm(sd, tr + "decoder.norm", params["decoder_norm"])
+    return sd
+
+
+def sam_flax_to_torch(params: Mapping, variant: str = "vit_l") -> Dict[str, torch.Tensor]:
+    """The JAX package's Sam (hq) parameter tree -> the state dict of
+    data/pseudo_gt/sam.py::Sam, whose names are the released sam_hq
+    checkpoint's. The released model reads one Gaussian matrix for the
+    prompt and the dense positional encodings; the flax tree holds two
+    (prompt_encoder/pe_gaussian and dense_pe), which must be equal."""
+    from ..data.pseudo_gt.sam import SAM_SPECS
+    depth = SAM_SPECS[variant][1]
+    pe, dense = np.asarray(params["prompt_encoder"]["pe_gaussian"]), np.asarray(params["dense_pe"])
+    if not np.array_equal(pe, dense):
+        raise ValueError("the flax tree's dense_pe differs from prompt_encoder/pe_gaussian; "
+                         "the released SAM (and this port) hold one Gaussian matrix")
+    enc, dec = params["image_encoder"], params["mask_decoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    ie = "image_encoder."
+    _dav2_conv(sd, ie + "patch_embed.proj", enc["patch_embed"])
+    sd[ie + "pos_embed"] = _t(enc["pos_embed"])
+    for i in range(depth):
+        sam_block_flax_to_torch(sd, f"{ie}blocks.{i}", enc[f"block{i}"])
+    _dav2_conv(sd, ie + "neck.0", enc["neck_conv1"])
+    _norm(sd, ie + "neck.1", enc["neck_ln1"])
+    _dav2_conv(sd, ie + "neck.2", enc["neck_conv2"])
+    _norm(sd, ie + "neck.3", enc["neck_ln2"])
+
+    sd["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = _t(pe)
+    corner = np.asarray(params["prompt_encoder"]["corner_embed"])
+    sd["prompt_encoder.point_embeddings.2.weight"] = _t(corner[:1])
+    sd["prompt_encoder.point_embeddings.3.weight"] = _t(corner[1:])
+
+    sam_mask_decoder_flax_to_torch(sd, "mask_decoder", dec)
+    return sd
+
+
+def sam_block_flax_to_torch(sd: Dict[str, torch.Tensor], name: str, blk: Mapping) -> None:
+    """The JAX ViTDetBlock -> sam.py::ViTDetBlock (released names)."""
+    b = name + "."
+    _norm(sd, b + "norm1", blk["norm1"])
+    _dense(sd, b + "attn.qkv", blk["attn"]["qkv"])
+    _dense(sd, b + "attn.proj", blk["attn"]["proj"])
+    sd[b + "attn.rel_pos_h"] = _t(blk["attn"]["rel_pos_h"])
+    sd[b + "attn.rel_pos_w"] = _t(blk["attn"]["rel_pos_w"])
+    _norm(sd, b + "norm2", blk["norm2"])
+    _dense(sd, b + "mlp.lin1", blk["mlp_fc1"])
+    _dense(sd, b + "mlp.lin2", blk["mlp_fc2"])
+
+
+def sam_mask_decoder_flax_to_torch(sd: Dict[str, torch.Tensor], name: str, dec: Mapping) -> None:
+    """The JAX MaskDecoder (hq) -> sam.py::MaskDecoder (released names)."""
+    md = name + "."
+    tokens = np.asarray(dec["mask_tokens"])  # the SAM mask tokens, then the HQ token
+    sd[md + "iou_token.weight"] = _t(dec["iou_token"])
+    sd[md + "mask_tokens.weight"] = _t(tokens[:-1])
+    sd[md + "hf_token.weight"] = _t(tokens[-1:])
+
+    def attn(name, leaf):
+        for ours, theirs in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                             ("out_proj", "out")):
+            _dense(sd, f"{name}.{ours}", leaf[theirs])
+    tr = md + "transformer."
+    for bi in range(2):
+        b, blk = f"{tr}layers.{bi}.", dec[f"block{bi}"]
+        attn(b + "self_attn", blk["self_attn"])
+        attn(b + "cross_attn_token_to_image", blk["cross_t2i"])
+        attn(b + "cross_attn_image_to_token", blk["cross_i2t"])
+        for n in range(1, 5):
+            _norm(sd, f"{b}norm{n}", blk[f"norm{n}"])
+        _dense(sd, b + "mlp.lin1", blk["mlp_fc1"])
+        _dense(sd, b + "mlp.lin2", blk["mlp_fc2"])
+    attn(tr + "final_attn_token_to_image", dec["final_attn"])
+    _norm(sd, tr + "norm_final_attn", dec["final_norm"])
+    _conv_transpose(sd, md + "output_upscaling.0", dec["upscale1"])
+    _norm(sd, md + "output_upscaling.1", dec["upscale_ln"])
+    _conv_transpose(sd, md + "output_upscaling.3", dec["upscale2"])
+    for i in range(3):
+        _dense(sd, f"{md}hf_mlp.layers.{i}", dec[f"hyper_hq_fc{i + 1}"])
+    _conv_transpose(sd, md + "compress_vit_feat.0", dec["hq_compress_early"])
+    _conv_transpose(sd, md + "embedding_encoder.0", dec["hq_compress_final"])
