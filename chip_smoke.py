@@ -155,6 +155,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      filter_ground, the priors CLI, the dataset loader (ground_image_path
      only outside no_ground_idx.csv) and one mapper batch with finite
      cached ground normals from the written maps;
+ 30. (after 25) the backbone sweep: configs/cubercnn_ResNet34_FPN.yaml,
+     cubercnn_shufflenet_FPN.yaml, cubercnn_mnasnet_FPN.yaml and
+     cubercnn_densenet_FPN.yaml at full width (RCNN3D + ROIHeads3D, 38
+     classes, bf16, 512 px, random weights from seed 0), the card freed
+     between configs: (a) detection at b8, median of 3 forwards after a
+     warm-up, device time under the profiler, K1 twice per forward and held
+     to its plain version on a forward's own pyramid and boxes; (b) the
+     supervised step at b25 as phase 25, K1 and K1-bwd 2 + 2 per step and
+     held to their plain versions; ms per step, images/s, peak memory; (c)
+     the small float32 supervised step of ResNet-18 (tiny_cfg(128)) with
+     SOLVER.TYPE adam+amsgrad, card vs CPU as phase 27, the parameters after
+     the update held to the same Adam update applied on the CPU to the
+     card's gradients; (d) the ResNet-34
+     model written as a released detectron2 .pth (fc1 columns in (C, 7, 7)
+     order) and loaded through MODEL.WEIGHTS into a fresh model: the same
+     tensors and detections;
  14. print the kernels line (K1, K1-bwd, K2; their launches on every path
      above) and, last, {"ok": true, "device": {...}}.
 
@@ -379,12 +395,13 @@ def match_detections(a, b, i):
     return torch.tensor(j, dtype=torch.long)
 
 
-def profile_forward(model, batch, top: int = 12):
+def profile_forward(model, batch, top: int = 12, report: dict = None):
     """torch.profiler over one forward: the device's busy share of the
     forward's wall time and the kernels that take most of it. Returns the
     number of layout-copy kernels launched (PyTorch's `direct_copy_kernel`,
     which `.contiguous()` and copying reshapes run; None where the profiler
-    saw no device time)."""
+    saw no device time). report, where given, gets busy_ms, wall_ms and
+    launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
@@ -402,6 +419,9 @@ def profile_forward(model, batch, top: int = 12):
         return None
     copies = [e for e in kernels if "direct_copy_kernel" in e.key]
     n_copies = sum(e.count for e in copies)
+    if report is not None:
+        report.update(busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
+                      launches=sum(e.count for e in kernels))
     print(f"[profile] one forward under the profiler: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), idle "
           f"{100 * (1 - busy_us / wall_us):.1f}%, {sum(e.count for e in kernels)} kernel launches, "
@@ -1096,7 +1116,7 @@ def train_phases(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     print(f"[train model] {cfg.MODEL.META_ARCHITECTURE} / {cfg.MODEL.ROI_HEADS.NAME} "
-          f"{cfg.MODEL.DLA.TYPE} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, {ncls} classes, compute "
+          f"{trunk_name(cfg)} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, {ncls} classes, compute "
           f"{cfg.TPU.COMPUTE_DTYPE}, losses {list(cfg.loss_functions)}, SGD lr "
           f"{cfg.SOLVER.BASE_LR} (warmup factor {cfg.SOLVER.WARMUP_FACTOR} over "
           f"{cfg.SOLVER.WARMUP_ITERS}), batch {TRAIN_BATCH} x {TRAIN_SIZE} px, {TRAIN_GT} GT "
@@ -2017,7 +2037,7 @@ def full_width_steps(dev, cfg, batch, label: str, n_calls: int) -> dict:
              f"{n_calls} each per step")
     ms = statistics.median(times[1:])
     print(f"[{label}] {cfg.MODEL.META_ARCHITECTURE} / {cfg.MODEL.ROI_HEADS.NAME} "
-          f"{cfg.MODEL.DLA.TYPE} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, "
+          f"{trunk_name(cfg)} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, "
           f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, {cfg.TPU.COMPUTE_DTYPE}, LOSS_W_3D "
           f"{cfg.MODEL.ROI_CUBE_HEAD.LOSS_W_3D}, b{TRAIN_BATCH} @ {TRAIN_SIZE} px: {n_steps} "
           f"steps applied, every loss finite; K1 launches {k1}, K1-bwd launches {kb} "
@@ -2222,6 +2242,233 @@ def recipe_cli_phase(dev, out: str) -> dict:
               f"b25 (data / step ms per iteration: " + ", ".join(
                   f"{d:.1f} / {s_:.1f}" for d, s_ in zip(rep[key]["data_ms"],
                                                           rep[key]["step_ms"])) + ")")
+    return rep
+
+
+# ------------------------------------------------------------- the backbone sweep
+SWEEP_CONFIGS = ("cubercnn_ResNet34_FPN.yaml", "cubercnn_shufflenet_FPN.yaml",
+                 "cubercnn_mnasnet_FPN.yaml", "cubercnn_densenet_FPN.yaml")
+SWEEP_BATCH = 8
+
+
+def trunk_name(cfg) -> str:
+    from weakcube_tpu_torch.models.backbone.build import trunk_name as name
+    return name(cfg)
+
+
+def k1_calls_kept(fn):
+    """Run fn() with the inputs of its K1 calls (pyramid, boxes, arguments)
+    kept; returns them, the most RoIs first (box pooler, cube pooler)."""
+    import torch
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    calls, fwd = [], roi_align_cuda._forward
+
+    def keep(features, boxes, *args):
+        calls.append(([f.detach().clone() for f in features], boxes.clone(), args))
+        return fwd(features, boxes, *args)
+    roi_align_cuda._forward = keep
+    try:
+        fn()
+    finally:
+        roi_align_cuda._forward = fwd
+    torch.cuda.synchronize()
+    return sorted(calls, key=lambda c: -c[1].shape[1])
+
+
+def check_k1_calls(calls, label: str) -> float:
+    """K1 against its plain version on kept calls, with check_pooler_calls'
+    tolerance (bf16: atol 1e-3 of the largest |value|, rtol 1e-2)."""
+    import torch
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    err = 0.0
+    for name, (levels, boxes, args) in zip(("box pooler", "cube pooler"), calls):
+        want = roi_align_cuda.plain(levels, boxes, *args)
+        rtol, atol = (1e-2, 1e-3) if levels[0].dtype == torch.bfloat16 else (1e-5, 2e-5)
+        err = max(err, check_close(f"K1 {label} {name} R={boxes.shape[1]} "
+                                   f"{str(levels[0].dtype)[6:]}",
+                                   roi_align_cuda.multilevel_roi_align(levels, boxes, *args),
+                                   want, atol * want.float().abs().max().item(), rtol))
+    return err
+
+
+def check_same_detections(a, b, label: str, atol: float, rtol: float) -> int:
+    """The same valid detections in a and b, matched as sets (near-equal
+    scores may swap slots); returns their count."""
+    import torch
+    n = 0
+    for i in range(a.valid.shape[0]):
+        va, vb = a.valid[i].cpu(), b.valid[i].cpu()
+        if int(va.sum()) != int(vb.sum()):
+            fail(f"{label}, image {i}: {int(va.sum())} against {int(vb.sum())} valid detections")
+        j = match_detections(a, b, i)
+        for name in ("boxes", "scores3D", "centers3D"):
+            x, y = getattr(b, name)[i].cpu()[vb][j], getattr(a, name)[i].cpu()[va]
+            try:
+                torch.testing.assert_close(x, y, atol=atol, rtol=rtol)
+            except AssertionError as e:
+                fail(f"{label}: det.{name} differs: {e}")
+        n += len(j)
+    return n
+
+
+def sweep_detection(dev, cfg, label: str) -> dict:
+    """30(a): the inference forward of cfg's model (random weights, seed 0)
+    at b8 of make_batch at 512 px: one warm-up and 3 timed forwards, the
+    outputs checked, K1 twice per forward and held to its plain version on
+    a forward's own pyramid and boxes, one forward under the profiler.
+    Returns the numbers and the model."""
+    import torch
+    from weakcube_tpu_torch.entry import dims_priors, make_batch
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.ops import roi_align_cuda
+    K1 = roi_align_cuda.multilevel_roi_align
+    t = time.time()
+    model = build_model(cfg, dims_priors(cfg.MODEL.ROI_HEADS.NUM_CLASSES), device=dev, seed=0)
+    batch = make_batch(SWEEP_BATCH, TRAIN_SIZE, TRAIN_SIZE, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[{label}] {cfg.MODEL.META_ARCHITECTURE} / {cfg.MODEL.ROI_HEADS.NAME} "
+          f"{trunk_name(cfg)} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, "
+          f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, {cfg.TPU.COMPUTE_DTYPE}, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, built in "
+          f"{time.time() - t:.1f} s")
+    K1.launches = 0
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            det = model(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    k1 = K1.launches
+    if k1 != 8:
+        fail(f"{label}: K1 launched {k1} times in 4 forwards, expected 8")
+    D = cfg.TEST.DETECTIONS_PER_IMAGE
+    for name in ("boxes", "scores3D", "centers3D", "dims3D", "poses3D"):
+        x = getattr(det, name)
+        if x.shape[:2] != (SWEEP_BATCH, D) or not bool(torch.isfinite(x).all()):
+            fail(f"{label}: det.{name} {tuple(x.shape)}, finite {bool(torch.isfinite(x).all())}")
+    if int(det.valid.sum()) == 0:
+        fail(f"{label}: no valid detections")
+    with torch.inference_mode():
+        calls = k1_calls_kept(lambda: model(batch))
+    if len(calls) != 2:
+        fail(f"{label}: the kept forward made {len(calls)} K1 calls, expected 2")
+    err = check_k1_calls(calls, label)
+    prof = {}
+    profile_forward(model, batch, report=prof)
+    ms = statistics.median(times[1:])
+    print(f"[timing] {label} forward b{SWEEP_BATCH} @ {TRAIN_SIZE} px: median {ms:.3f} ms over 3 "
+          f"(each {', '.join(f'{x:.3f}' for x in times)} ms, first is the warm-up), "
+          f"{SWEEP_BATCH * 1e3 / ms:.2f} images/s; device busy "
+          + (f"{prof['busy_ms']:.3f} ms under the profiler" if prof else "not measured")
+          + f"; K1 launches {k1} (2 per forward); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return dict(ms=ms, times=times, device_ms=prof.get("busy_ms"), k1=k1, err=err,
+                valid=int(det.valid.sum()), model=model, batch=batch, det=det)
+
+
+def released_load_check(dev, cfg, model, batch, det, out: str) -> dict:
+    """30(d): model written as a released detectron2 .pth (detectron2's
+    names, which the port's modules carry; fc1 columns in detectron2's
+    (C, 7, 7) order; pixel_mean / pixel_std, which the model lacks; no
+    num_batches_tracked), loaded through MODEL.WEIGHTS into a fresh model
+    (another seed) on the card: every tensor equal, and the detections of
+    the model it was written from."""
+    import torch
+    from weakcube_tpu_torch.entry import dims_priors
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.solver.checkpoint import load_model_weights
+    C = cfg.MODEL.FPN.OUT_CHANNELS
+    d2 = {}
+    for k, x in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        x = x.detach().cpu()
+        if k.endswith("fc1.weight") and k.startswith(("roi_heads.box_head",
+                                                      "roi_heads.cube_head.feature_generator")):
+            r = int(round((x.shape[1] // C) ** 0.5))
+            x = x.reshape(x.shape[0], r, r, C).permute(0, 3, 1, 2).reshape(x.shape)
+        d2[k] = x.contiguous()
+    d2["pixel_mean"] = torch.tensor(cfg.MODEL.PIXEL_MEAN).view(3, 1, 1)
+    d2["pixel_std"] = torch.tensor(cfg.MODEL.PIXEL_STD).view(3, 1, 1)
+    path = os.path.join(out, "cubercnn_ResNet34_FPN.pth")
+    torch.save({"model": d2, "iteration": 0}, path)
+    wcfg = cfg.clone()
+    wcfg.defrost()
+    wcfg.MODEL.WEIGHTS = path
+    wcfg.freeze()
+    fresh = build_model(wcfg, dims_priors(cfg.MODEL.ROI_HEADS.NUM_CLASSES), device=dev, seed=1)
+    t = time.time()
+    load_model_weights(wcfg.MODEL.WEIGHTS, fresh)
+    load_s = time.time() - t
+    a, b = model.state_dict(), fresh.state_dict()
+    bad = [k for k in a if not k.endswith("num_batches_tracked") and not torch.equal(a[k], b[k])]
+    if bad:
+        fail(f"the released .pth loaded other tensors: {bad[:8]}")
+    with torch.inference_mode():
+        got = fresh(batch)
+    n = check_same_detections(det, got, "released .pth load", 1e-2, 1e-2)
+    same_bits = all(torch.equal(getattr(det, f), getattr(got, f))
+                    for f in ("boxes", "scores3D", "centers3D", "dims3D", "poses3D"))
+    print(f"[released] {trunk_name(cfg)} written as a detectron2 .pth ({os.path.getsize(path)} B, "
+          f"fc1 columns in (C, 7, 7) order, pixel_mean / pixel_std) and loaded through "
+          f"MODEL.WEIGHTS into a fresh model on the card in {load_s:.2f} s: {len(a)} tensors "
+          f"equal, {n} valid detections the same as the model it was written from "
+          f"(bit for bit: {same_bits})")
+    return {"tensors": len(a), "detections": n, "same_bits": same_bits}
+
+
+def backbone_sweep_phase(dev, out: str) -> dict:
+    """Phase 30: the backbone sweep. For each of SWEEP_CONFIGS at full width
+    (RCNN3D + ROIHeads3D, 38 classes, bf16, 512 px, random weights from seed
+    0): (a) detection at b8, (b) the supervised step at b25 of phase 25's
+    batch (tiny_batch with random GT poses), K1 and K1-bwd 2 + 2 per step
+    and held to their plain versions on a step's own inputs; the card freed
+    between configs. (c) the small float32 supervised step of ResNet-18
+    (tiny_cfg(128)) with SOLVER.TYPE adam+amsgrad, card vs CPU. (d) the
+    ResNet-34 model through a released detectron2 .pth."""
+    import torch
+    from weakcube_tpu_torch.entry import tiny_batch
+    from torch_train_check import _cfg, train_step_card_vs_cpu, with_random_poses
+    rep = {}
+    batch = with_random_poses(tiny_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, G=TRAIN_GT,
+                                         seed=0, device=dev))
+    for config in SWEEP_CONFIGS:
+        t = time.time()
+        cfg = config_at(config)
+        key = trunk_name(cfg)
+        det = sweep_detection(dev, cfg, f"sweep {key}")
+        if config == "cubercnn_ResNet34_FPN.yaml":
+            det["released"] = released_load_check(dev, cfg, det["model"], det["batch"],
+                                                  det["det"], out)
+        for k in ("model", "batch", "det"):
+            del det[k]
+        torch.cuda.empty_cache()
+        run = full_width_steps(dev, cfg, batch, f"sweep {key} step", 2)
+        rep[key] = {"detection": det, "train": {k: run[k] for k in ("ms", "times", "peak_gib",
+                                                                     "k1", "k1_bwd", "errs")}}
+        del run
+        torch.cuda.empty_cache()
+        print(f"[phase] 30 ({key}) took {time.time() - t:.1f} s")
+    t = time.time()
+    cfg = _cfg("supervised", dla=False).clone()
+    cfg.defrost()
+    cfg.SOLVER.TYPE = "adam+amsgrad"
+    cfg.freeze()
+    r = train_step_card_vs_cpu(dev, "supervised", cfg)
+    print(f"[reference] small float32 supervised step of {trunk_name(cfg)} with SOLVER.TYPE "
+          f"{cfg.SOLVER.TYPE}, card vs CPU (the same injected anchor labels and RoIs): "
+          f"{r['n_losses']} losses and metrics and {r['n_grads']} gradients agree within 1e-4 of "
+          f"scale plus 3x the CPU float32 step's distance to its float64 step; the "
+          f"{r['n_params']} parameters and statistics after the update within 1e-5 of scale of "
+          f"the same Adam update applied on the CPU in float64 to the card's own gradients "
+          f"(worst relative error "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in r['worst_rel'].items())}); SGD's parameter "
+          f"bound, which an Adam update need not meet, read at {r['sgd_bound_excess']:.3f}x; "
+          f"{time.time() - t:.1f} s")
+    rep["adam_card_vs_cpu"] = r
     return rep
 
 
@@ -2817,7 +3064,7 @@ def main() -> None:
     batch = make_batch(8, 512, 512, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"[model] {cfg.MODEL.META_ARCHITECTURE} / {cfg.MODEL.ROI_HEADS.NAME} "
-          f"{cfg.MODEL.DLA.TYPE} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, {ncls} classes, "
+          f"{trunk_name(cfg)} FPN {cfg.MODEL.FPN.OUT_CHANNELS}, {ncls} classes, "
           f"compute {cfg.TPU.COMPUTE_DTYPE}, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
           f"built in {time.time() - t:.1f} s")
@@ -2879,23 +3126,8 @@ def main() -> None:
     b_gpu = {k: v.to(dev) for k, v in b_cpu.items()}
     with torch.inference_mode():
         d_gpu, d_cpu = m_gpu(b_gpu), m_cpu(b_cpu)
-    n_match = 0
-    for i in range(d_cpu.valid.shape[0]):
-        vg, vc = d_gpu.valid[i].cpu(), d_cpu.valid[i]
-        if int(vg.sum()) != int(vc.sum()):
-            fail(f"small model, image {i}: {int(vg.sum())} valid detections on the "
-                 f"card, {int(vc.sum())} on the CPU")
-        # the same detections, matched as sets (near-equal scores may swap slots)
-        j = match_detections(d_cpu, d_gpu, i)
-        for name in ("boxes", "scores3D", "centers3D"):
-            a = getattr(d_gpu, name)[i].cpu()[vg][j]
-            b = getattr(d_cpu, name)[i][vc]
-            # float32 with TF32 off: cuDNN's and the CPU's sums differ in order
-            try:
-                torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
-            except AssertionError as e:
-                fail(f"small model: det.{name} differs between the card and the CPU: {e}")
-        n_match += len(j)
+    # float32 with TF32 off: cuDNN's and the CPU's sums differ in order
+    n_match = check_same_detections(d_cpu, d_gpu, "small model, card vs CPU", 1e-3, 1e-3)
     if n_match == 0:
         fail("small model: no valid detections to compare")
     print(f"[reference] small float32 model, card vs CPU: {n_match} valid "
@@ -3005,6 +3237,19 @@ def main() -> None:
     print(f"[phase] 25-27 (supervised, 2D-only and all-loss steps) took {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
 
+    # -- 30. the backbone sweep: ResNet-34, ShuffleNetV2, MNASNet, DenseNet-121
+    # at full width; Adam on the card; a released .pth --------------------------
+    t = time.time()
+    sweep_out = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        sweep = backbone_sweep_phase(dev, sweep_out)
+    finally:
+        shutil.rmtree(sweep_out, ignore_errors=True)
+    max_err["sweep"] = max(max(r["detection"]["err"], r["train"]["errs"]["K1"])
+                           for k, r in sweep.items() if k != "adam_card_vs_cpu")
+    print(f"[phase] 30 (the backbone sweep) took {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
+
     # -- 23. DP-step: two ranks on this card against one process --------------
     t = time.time()
     dp = dp_step_phase(dev)
@@ -3048,6 +3293,12 @@ def main() -> None:
     for key, name in (("2d_only", "recipe CLI 2D-only (4 x b25)"),
                       ("weak", "recipe CLI weak, warm-started (4 x b25)")):
         new_k1[name], new_bwd[name] = recipe[key]["k1"], recipe[key]["k1_bwd"]
+    # phase 30's: each trunk's detection forwards and supervised steps
+    for key, r in sweep.items():
+        if key != "adam_card_vs_cpu":
+            new_k1[f"sweep {key} detection (4 x b{SWEEP_BATCH})"] = r["detection"]["k1"]
+            new_k1[f"sweep {key} supervised step (6 x b{TRAIN_BATCH})"] = r["train"]["k1"]
+            new_bwd[f"sweep {key} supervised step (6 x b{TRAIN_BATCH})"] = r["train"]["k1_bwd"]
 
     # -- 14. result lines ---------------------------------------------------
     print(card)  # again beside the results at the end of the output
@@ -3072,7 +3323,9 @@ def main() -> None:
                                f"DP-step ({DP_RANKS} ranks x {DP_STEPS} steps of "
                                f"b{DP_BATCH // DP_RANKS})": dp["k1_bwd"], **new_bwd},
              max_abs_err=max(k1_bwd["max_abs_err"], dp["errs"]["K1-bwd"],
-                             *(r["errs"]["K1-bwd"] for r in heads.values()))), k2]}))
+                             *(r["errs"]["K1-bwd"] for r in heads.values()),
+                             *(r["train"]["errs"]["K1-bwd"] for k, r in sweep.items()
+                               if k != "adam_card_vs_cpu"))), k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

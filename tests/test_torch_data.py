@@ -247,3 +247,67 @@ def test_prefetch_passes_everything_and_stops():
     it = t_build.prefetch(iter(range(1000)), depth=2)
     assert next(it) == 0
     it.close()  # stops the worker; nothing left to consume
+
+
+# ------------------------------------------------------- KITTI export, stats
+def kitti_records(n=3, seed=11):
+    """Evaluator-style detection records with 3D fields and full poses."""
+    from weakcube_tpu_torch.ops.rotations import rotation_6d_to_matrix
+    import torch
+    rng = np.random.default_rng(seed)
+    recs = []
+    for i in range(n):
+        k = int(rng.integers(0, 4))  # an image may have no detection
+        xy = rng.uniform(0, 400, (k, 2))
+        recs.append({
+            "image_id": 3 * i + 1,
+            "boxes": np.concatenate([xy, xy + rng.uniform(10, 200, (k, 2))], -1),
+            "classes": rng.integers(0, 5, k),
+            "scores": rng.uniform(0, 1, k),
+            "centers3D": np.stack([rng.uniform(-5, 5, k), rng.uniform(-2, 2, k),
+                                   rng.uniform(2, 40, k)], -1),
+            "dims3D": rng.uniform(0.3, 4, (k, 3)),
+            "poses3D": rotation_6d_to_matrix(torch.from_numpy(rng.normal(size=(k, 6)))).numpy()})
+    return recs
+
+
+def test_kitti_export_matches_jax(tmp_path):
+    """data/kitti_export.py writes the files JAX's writes, byte for byte."""
+    from weakcube_tpu.data.kitti_export import export_predictions_to_kitti as j_export
+    from weakcube_tpu_torch.data.kitti_export import (export_predictions_to_kitti,
+                                                      rotation_y_from_pose)
+    recs = kitti_records()
+    names = list(t_synth.CATEGORIES)
+    j_export(recs, str(tmp_path / "jax"), names)
+    export_predictions_to_kitti(recs, str(tmp_path / "port"), names)
+    files = sorted(os.listdir(tmp_path / "jax"))
+    assert files == sorted(os.listdir(tmp_path / "port")) == [
+        f"{r['image_id']:06d}.txt" for r in recs]
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+    assert any((tmp_path / "port" / f).stat().st_size for f in files)
+    yaw = 0.7
+    c, s = np.cos(yaw), np.sin(yaw)
+    assert abs(rotation_y_from_pose(np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])) - yaw) < 1e-6
+
+
+def test_visualise_gt_matches_the_root_script(tmp_path, capsys, monkeypatch):
+    """tools/visualise_gt.py's statistics (returned and printed) and log
+    parsing against the root VisualiseGT.py's functions, on the same
+    synthetic records (one annotation ignored) and log."""
+    from weakcube_tpu_torch.tools import visualise_gt
+    monkeypatch.syspath_prepend(REPO)
+    import VisualiseGT
+    recs = t_synth.make_dataset(N_RECORDS, seed=4)
+    recs[0]["annotations"][0]["ignore"] = True
+    names = list(t_synth.CATEGORIES)
+    got = visualise_gt.dataset_statistics(recs, names)
+    printed = capsys.readouterr().out
+    assert got == VisualiseGT.dataset_statistics(recs, names)
+    assert printed == capsys.readouterr().out and "chair" in printed
+    log = tmp_path / "log.txt"
+    log.write_text("iter 10 AP2D: 12.5\nAP3D | 3.25\nnoise\nAP2D = 17.0\nAP3D: x\n")
+    for metrics in (("AP2D", "AP3D"), ("AP3D",), ("APnone",)):
+        assert visualise_gt.parse_metrics_from_log(str(log), metrics) == \
+            VisualiseGT.parse_metrics_from_log(str(log), metrics)
+    assert visualise_gt.parse_metrics_from_log(str(log)) == {"AP2D": 17.0, "AP3D": 3.25}

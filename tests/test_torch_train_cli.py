@@ -66,6 +66,22 @@ def test_cli_trains_on_the_cpu(run):
         assert os.path.exists(os.path.join(out, name + checkpoint.SUFFIX))
 
 
+def test_cli_trains_the_smoke_config_as_written(tmp_path, monkeypatch, one_thread):
+    """configs/synthetic_smoke.yaml with its own backbone (ResNet-18 + FPN),
+    no override but the size: one iteration trains and saves (the
+    TensorBoard writer stubbed: TensorFlow's import)."""
+    monkeypatch.setattr(events, "TensorboardWriter", NoTensorboard)
+    state, history = train_net.main([
+        "--config-file", os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
+        "--synthetic", "4", "--device", "cpu", "--max-iters", "1", "TPU.IMAGE_SIZE", "64",
+        "SOLVER.IMS_PER_BATCH", "2", "OUTPUT_DIR", str(tmp_path)])
+    assert (state.step, state.applied, state.skipped) == (1, 1, 0)
+    assert math.isfinite(history[0]["logs"]["total_loss"])
+    sd = torch.load(os.path.join(tmp_path, "model_final" + checkpoint.SUFFIX),
+                    weights_only=True)["model"]
+    assert "backbone.bottom_up.layer4.1.conv2.weight" in sd
+
+
 def test_cli_resumes_from_model_recent(run):
     out, _, _ = run
     state, history = cli(out, "--resume", "--max-iters", "3",
@@ -105,11 +121,16 @@ def test_cli_refuses_evaluation(tmp_path, args, opts):
     assert cfg.VIS_PERIOD == want.get("VIS_PERIOD", 0)
 
 
-def test_checkpoint_continues_a_step_exactly(tmp_path):
+@pytest.mark.parametrize("solver", ["sgd", "adam+amsgrad"])
+def test_checkpoint_continues_a_step_exactly(tmp_path, solver, one_thread):
     """One step, save, load into a fresh model and optimizer, one more step:
-    the same parameters, BatchNorm statistics, momentum, schedule and
-    TrainState as one more step from the in-memory state."""
-    cfg = tiny_cfg(64, 5, dla=True)
+    the same parameters, BatchNorm statistics, optimizer state (momentum;
+    Adam's moments and nu_max), schedule and TrainState as one more step
+    from the in-memory state."""
+    cfg = tiny_cfg(64, 5, dla=True).clone()
+    cfg.defrost()
+    cfg.SOLVER.TYPE = solver
+    cfg.freeze()
     batch = tiny_batch(2, 64, 64, device="cpu")
 
     def fresh(seed):
@@ -131,21 +152,113 @@ def test_checkpoint_continues_a_step_exactly(tmp_path):
     assert set(a) == set(b)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+    keys = {"sgd": {"momentum_buffer"},
+            "adam+amsgrad": {"exp_avg", "exp_avg_sq", "max_exp_avg_sq"}}[solver]
     for p, q in zip(opt.param_groups, opt2.param_groups):
         assert p["lr"] == q["lr"]
         for x, y in zip(p["params"], q["params"]):
-            assert torch.equal(opt.state[x]["momentum_buffer"], opt2.state[y]["momentum_buffer"])
+            assert set(opt.state[x]) == set(opt2.state[y]) == keys
+            for k in keys:
+                assert torch.equal(opt.state[x][k], opt2.state[y][k]), k
 
 
-def test_foreign_checkpoints_raise(tmp_path):
-    """Released detectron2 checkpoints raise (their fc1 columns need a
-    permutation); this package's checkpoints load the weights alone."""
-    cfg = tiny_cfg(64, 5, dla=True)
+@pytest.fixture(scope="module")
+def released(tmp_path_factory):
+    """tiny_cfg(64)'s model (ResNet-18) as a released detectron2 .pth: the
+    flax variables (random, in flax's shapes) under detectron2's names, as
+    tests/test_zoo_convert.py's _fake_d2_state_dict lays them out, fc1
+    columns in detectron2's (C, 7, 7) order, and the pixel_mean / pixel_std
+    that detectron2 checkpoints carry and this model lacks."""
+    import jax
+    import __graft_entry__ as graft
+    from weakcube_tpu.models.rcnn3d import build_model as j_build_model
+    from weakcube_tpu_torch.utils.convert import flax_to_torch
+    from test_torch_model import random_variables
+    cfg = tiny_cfg(64, 5)
+    jm = j_build_model(graft._tiny_cfg(64, 5), dims_priors(5))
+    jb = {k: jax.numpy.asarray(v) for k, v in graft._tiny_batch(1, 64, 64, with_depth=False).items()
+          if k in ("image", "image_wh", "K")}
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jb, train=False))
+    v = random_variables(shapes, seed=3)
+    ours = flax_to_torch(v["params"], v["batch_stats"])  # fc1 over (7, 7, C)
+    C = cfg.MODEL.FPN.OUT_CHANNELS
+    d2 = {k: x for k, x in ours.items() if not k.endswith("num_batches_tracked")}
+    for k in ("roi_heads.box_head.fc1.weight", "roi_heads.cube_head.feature_generator.fc1.weight"):
+        w = ours[k]
+        d2[k] = w.reshape(w.shape[0], 7, 7, C).permute(0, 3, 1, 2).reshape(w.shape)
+    d2["pixel_mean"], d2["pixel_std"] = torch.zeros(3, 1, 1), torch.ones(3, 1, 1)
+    root = tmp_path_factory.mktemp("released")
+    path = root / "cubercnn_ResNet18_FPN.pth"
+    torch.save({"model": d2, "iteration": 7}, path)
+    # the same file for JAX, whose zoo_convert does not permute fc1
+    jax_path = root / "for_jax.pth"
+    torch.save({"model": {k: x for k, x in ours.items()
+                          if not k.endswith("num_batches_tracked")}}, jax_path)
+    return dict(cfg=cfg, path=str(path), jax_path=str(jax_path), ours=ours, d2=d2)
+
+
+def test_released_checkpoints_load(released, tmp_path, monkeypatch, caplog, one_thread):
+    """A detectron2-layout .pth loads through MODEL.WEIGHTS: the same
+    tensors as JAX's load_model_weights gives on that file (handed to JAX
+    with fc1 already in (7, 7, C), since JAX does not permute), the fc1
+    columns permuted so that the port's fc1 on a pooled RoI flattened as
+    (7, 7, C) equals detectron2's fc1 on it flattened as (C, 7, 7); the
+    keys the model lacks are dropped and logged. A cubercnn:// name
+    resolves from the cache and, missing there and with no network, raises
+    FileNotFoundError; a backbone without released checkpoints raises
+    ValueError; this package's own checkpoints load as before."""
+    import logging
+    import urllib.request
+    from weakcube_tpu.solver.checkpoint import load_model_weights as j_load_model_weights
+    from weakcube_tpu_torch.utils import model_zoo
+    from weakcube_tpu_torch.utils.convert import flax_to_torch
+    cfg = released["cfg"]
     model = build_model(cfg, dims_priors(5), device="cpu")
-    for src in ("model_final.pth", "cubercnn://omni3d/cubercnn_DLA34_FPN.pth"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            checkpoint.load_weights_pretrain(src, model)
-    ckpt = checkpoint.PeriodicCheckpointerOnlyOne(str(tmp_path), 1)
+    with caplog.at_level(logging.INFO):
+        checkpoint.load_model_weights(released["path"], model)
+    assert any("pixel_mean" in r.message and "pixel_std" in r.message for r in caplog.records)
+    jp, js = j_load_model_weights(released["jax_path"], cfg)
+    want = flax_to_torch(jp, js)
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for k, x in want.items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(got[k], x), k
+
+    # detectron2's box head: flatten NCHW, then fc1
+    C = cfg.MODEL.FPN.OUT_CHANNELS
+    pooled = torch.from_numpy(np.random.default_rng(2).normal(size=(6, 7, 7, C)).astype(np.float32))
+    d2_w, d2_b = released["d2"]["roi_heads.box_head.fc1.weight"],         released["d2"]["roi_heads.box_head.fc1.bias"]
+    d2_out = pooled.permute(0, 3, 1, 2).flatten(1) @ d2_w.T + d2_b
+    with torch.no_grad():
+        ours = model.roi_heads.box_head.fc1(pooled.flatten(1))
+    torch.testing.assert_close(ours, d2_out, rtol=1e-5, atol=1e-5 * float(d2_out.abs().max()))
+
+    # cubercnn:// from the cache; missing, with no network
+    monkeypatch.setattr(model_zoo, "CACHE_DIR", str(tmp_path))
+    os.makedirs(tmp_path / "omni3d")
+    os.symlink(released["path"], tmp_path / "omni3d" / "cubercnn_ResNet18_FPN.pth")
+    fresh = build_model(cfg, dims_priors(5), device="cpu", seed=9)
+    checkpoint.load_weights_pretrain("cubercnn://omni3d/cubercnn_ResNet18_FPN.pth", fresh)
+    assert all(torch.equal(x, got[k]) for k, x in fresh.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
+
+    def no_network(*a, **k):
+        raise OSError("no network")
+    monkeypatch.setattr(urllib.request, "urlretrieve", no_network)
+    with pytest.raises(FileNotFoundError, match="cubercnn_DLA34_FPN.pth"):
+        checkpoint.load_model_weights("cubercnn://omni3d/cubercnn_DLA34_FPN.pth", fresh)
+
+    small = tiny_cfg(64, 5).clone()
+    small.defrost()
+    small.MODEL.BACKBONE.NAME = "build_mnasnet_fpn_backbone"
+    small.freeze()
+    with pytest.raises(ValueError, match="unsupported backbone"):
+        checkpoint.load_model_weights(released["path"], build_model(small, dims_priors(5),
+                                                                    device="cpu"))
+
+    # this package's checkpoints load the weights alone
+    ckpt = checkpoint.PeriodicCheckpointerOnlyOne(str(tmp_path / "own"), 1)
     state, opt = create_train_state(cfg, model)
     ckpt.finalize(model, opt, state)
     saved = {k: v.clone() for k, v in model.state_dict().items()}

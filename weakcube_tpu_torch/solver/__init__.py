@@ -1,1 +1,1 @@
-from .build import build_lr_schedule, build_optimizer, param_label  # noqa: F401
+from .build import build_lr_schedule, build_optimizer, freeze_bn, param_label  # noqa: F401

@@ -11,8 +11,14 @@ A checkpoint is one `torch.save` of plain containers, loaded with
     "schedule_count", the position of its learning-rate schedule (the
     schedule itself is rebuilt from the config);
   * "train_state": the TrainState's fields.
-A released detectron2 `.pth` is not loaded yet: its fc1 input columns need
-the (C, 7, 7) -> (7, 7, C) permutation (ROADMAP.md, Queue C).
+MODEL.WEIGHTS and MODEL.WEIGHTS_PRETRAIN also take a released detectron2
+`.pth` and a `cubercnn://` name (utils/model_zoo.py), as the JAX package's
+load_model_weights does: the port's modules carry detectron2's names, so
+the file's tensors load by name, with one change: detectron2 flattens a
+pooled RoI as (C, 7, 7) and this package as (7, 7, C), so the input
+columns of roi_heads.box_head.fc1 and of every
+roi_heads.cube_head.feature_generator*.fc1 are permuted to (7, 7, C) (the
+JAX package's zoo_convert does not permute them; ROADMAP.md, Queue C).
 
 In a data-parallel run rank 0 alone writes, and every rank waits at a
 barrier after each save, so that all of them can then load it (OUTPUT_DIR
@@ -23,23 +29,24 @@ and into the eval CLI.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
+import re
 
 import torch
 import torch.nn as nn
 
+from ..models.backbone.dla import DLABottomUp
+from ..models.backbone.resnet import ResNetBottomUp
 from ..parallel import distributed
 from ..parallel.train_step import TrainState
+from ..utils import model_zoo
 
 SUFFIX = ".pt"
+logger = logging.getLogger(__name__)
 
-
-def _refuse_foreign(src: str) -> None:
-    if src.startswith("cubercnn://") or src.endswith(".pth"):
-        raise NotImplementedError(
-            f"{src}: loading released detectron2 checkpoints is not ported to PyTorch yet "
-            "(their box_head.fc1 and cube_head fc1 columns need the (C, 7, 7) -> (7, 7, C) "
-            "permutation; ROADMAP.md, Queue A item 4 and Queue C)")
+# the released checkpoints' fc1 layers, whose input is a flattened pooled RoI
+_FC1 = re.compile(r"roi_heads\.(box_head|cube_head\.feature_generator\w*)\.fc1\.weight")
 
 
 def _load(path: str) -> dict:
@@ -97,16 +104,59 @@ class PeriodicCheckpointerOnlyOne:
         return state
 
 
+def _pooled_chw_to_hwc(w: torch.Tensor, channels: int) -> torch.Tensor:
+    """fc1 weight (out, C * r * r) over detectron2's (C, r, r) flatten ->
+    the same layer over this package's (r, r, C) flatten."""
+    out, n = w.shape
+    r = int(round((n // channels) ** 0.5))
+    return w.reshape(out, channels, r, r).permute(0, 2, 3, 1).reshape(out, n)
+
+
+def load_released(path: str, model: nn.Module) -> None:
+    """Load a released detectron2 `.pth` (its "model" entry where it has
+    one) into model by name, the fc1 columns permuted. Keys the model lacks
+    (detectron2's pixel_mean / pixel_std, ...) are dropped and logged; a
+    tensor the model has and the file lacks raises, BatchNorm's
+    num_batches_tracked (which FrozenBatchNorm checkpoints lack) excepted.
+    Only the DLA and ResNet trunks have released checkpoints (ValueError
+    for the others, as in the JAX package)."""
+    bottom_up = model.backbone.bottom_up
+    if not isinstance(bottom_up, (DLABottomUp, ResNetBottomUp)):
+        raise ValueError(f"unsupported backbone for zoo conversion: "
+                         f"{model.cfg.MODEL.BACKBONE.NAME}")
+    obj = _load(path)
+    src = obj["model"] if isinstance(obj, dict) and "model" in obj else obj
+    own = model.state_dict()
+    channels = model.cfg.MODEL.FPN.OUT_CHANNELS
+    sd, dropped = {}, []
+    for k, v in src.items():
+        if k not in own:
+            dropped.append(k)
+            continue
+        v = torch.as_tensor(v)
+        sd[k] = _pooled_chw_to_hwc(v, channels) if _FC1.fullmatch(k) else v
+    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"{path} lacks {len(missing)} of the model's tensors: {missing[:8]}")
+    if dropped:
+        logger.info("%s: dropped %d keys the model lacks: %s", path, len(dropped), dropped)
+    model.load_state_dict(sd, strict=False)
+
+
 def load_weights_pretrain(path: str, model: nn.Module) -> None:
     """Weights-only warm start (MODEL.WEIGHTS_PRETRAIN): the model's
-    parameters and statistics from a checkpoint of this package; no
-    optimizer state, no step."""
-    _refuse_foreign(path)
-    model.load_state_dict(_load(os.path.abspath(path))["model"])
+    parameters and statistics from a checkpoint of this package, a released
+    detectron2 `.pth` or a `cubercnn://` name; no optimizer state, no
+    step."""
+    path = model_zoo.resolve(path)
+    if path.endswith(".pth"):
+        load_released(path, model)
+    else:
+        model.load_state_dict(_load(os.path.abspath(path))["model"])
 
 
 def load_model_weights(src: str, model: nn.Module) -> None:
-    """MODEL.WEIGHTS: initialise the model from a named checkpoint of this
-    package (the reference's DetectionCheckpointer.resume_or_load(
-    cfg.MODEL.WEIGHTS), tools/train_net.py:149-155)."""
+    """MODEL.WEIGHTS: initialise the model from a named checkpoint (the
+    reference's DetectionCheckpointer.resume_or_load(cfg.MODEL.WEIGHTS),
+    tools/train_net.py:149-155), of any kind load_weights_pretrain takes."""
     load_weights_pretrain(src, model)

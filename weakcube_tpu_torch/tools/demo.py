@@ -8,11 +8,12 @@ wireframes and a top-down view of each image as a JPEG.
         [--ground-folder G] [--device cpu] MODEL.WEIGHTS model_final.pt ...
 
 Runs on the card unless `--device cpu` is given. The weights come from
-MODEL.WEIGHTS (a checkpoint of this package), else the random init of seed
-0; every class gets the flat dims priors of the reference demo (mean 0.8 m,
-std 0.3 m). The default intrinsics follow the reference (demo.py:67-80):
-f = 4 h / 2 in NDC, i.e. a focal length of twice the image height, and the
-principal point at the centre. Depth and ground maps (`<stem>.npz` in
+MODEL.WEIGHTS (a checkpoint of this package, a released detectron2 .pth or a
+cubercnn:// name), else the random init of seed 0; every class gets the
+flat dims priors of the reference demo (mean 0.8 m, std 0.3 m). The
+default intrinsics follow the reference (demo.py:67-80): f = 4 h / 2 in
+NDC, i.e. a focal length of twice the image height, and the principal
+point at the centre. Depth and ground maps (`<stem>.npz` in
 --depth-folder / --ground-folder) go through the mapper when present
 (demo.py:81-94). Detections whose scores3D is below --threshold are not
 drawn.

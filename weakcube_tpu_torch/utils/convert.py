@@ -4,14 +4,17 @@
 nested dicts of numpy arrays (the JAX package's param tree; nothing of JAX
 is imported) and returns a state dict for models/rcnn3d.py:
 
-  * conv kernels (kh, kw, in, out) -> weights (out, in, kh, kw);
+  * conv kernels (kh, kw, in, out) -> weights (out, in, kh, kw) (a
+    depthwise kernel (kh, kw, 1, C) -> (C, 1, kh, kw));
   * Dense kernels (in, out) -> Linear weights (out, in);
   * BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
     running_var.
 
 Names become the reference's detectron2 names, which this package's
-modules carry: bottom_up/* -> backbone.bottom_up.* (base_conv ->
-base_layer.0, levelN_bn -> levelN.1, project_conv -> project.0, ...),
+modules carry: bottom_up/* -> backbone.bottom_up.* (DLA: base_conv ->
+base_layer.0, levelN_bn -> levelN.1, project_conv -> project.0, ...;
+ResNet: layerS_B -> layerS.B, downsample_conv / _bn -> downsample.0 / .1;
+the small nets' flax names pass through: stage2_0.branch1_dw, ...),
 backbone/fpn/lateral_pK -> backbone.fpn_lateralK, rpn_head/objectness ->
 proposal_generator.rpn_head.objectness_logits, cube_head/shared_fcN ->
 cube_head.feature_generator.fcN. It is the inverse of
@@ -42,16 +45,20 @@ _CUBE_BRANCH = {"shared": "feature_generator", "xy": "feature_generator_XY",
                 "z": "feature_generator_Z", "conf": "feature_generator_conf"}
 
 
-def _torch_name(path: List[str]) -> str:
-    """flax layer path (no leaf) -> torch module name."""
+def _torch_name(path: List[str], dla: bool) -> str:
+    """flax layer path (no leaf) -> torch module name; dla: the trunk is a
+    DLA (MNASNet's project_bn is no DLA projection)."""
     head, rest = path[0], path[1:]
     if head == "bottom_up":
         out = ["backbone", "bottom_up"]
         for p in rest:
-            m = re.fullmatch(r"(base|level\d+|project)_(conv|bn)", p)
+            m = ((dla and re.fullmatch(r"(base|level\d+|project)_(conv|bn)", p))
+                 or re.fullmatch(r"(downsample)_(conv|bn)", p))           # ResNet
             if m:
                 out += ["base_layer" if m[1] == "base" else m[1],
                         "0" if m[2] == "conv" else "1"]
+            elif re.fullmatch(r"layer\d+_\d+", p):                        # ResNet block
+                out += p.split("_")
             else:
                 out.append(p)
         return ".".join(out)
@@ -85,8 +92,9 @@ def _t(a) -> torch.Tensor:
 def flax_to_torch(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     stats = {tuple(p): leaf for p, leaf in _layers(batch_stats, [])}
     sd: Dict[str, torch.Tensor] = {}
+    dla = "base_conv" in params.get("bottom_up", {})
     for path, leaf in _layers(params, []):
-        name = _torch_name(path)
+        name = _torch_name(path, dla)
         if "kernel" in leaf:
             k = np.asarray(leaf["kernel"])
             sd[name + ".weight"] = _t(k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)
