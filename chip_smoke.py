@@ -143,7 +143,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  29. (after 9) the recipe's ground pseudo-GT pipeline from phase 8's depth
      maps (re-generated if gone): (a) depth-ransac ground maps on the card
      (data/generate_ground_segmentations.py), their IoU with each scene's
-     true ground, and the same on the scenes' analytic depth; card vs CPU
+     true ground (ops/boxes.py::mask_iou), and the same on the scenes'
+     analytic depth; card vs CPU
      on 4 maps with the same injected draws (equal masks); (b) the
      foundation method at full width with random weights (GroundingDINO
      Swin-T OGC: BERT-base, 6 + 6 layers, 900 queries, 768 px; SAM-HQ
@@ -171,6 +172,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      model written as a released detectron2 .pth (fc1 columns in (C, 7, 7)
      order) and loaded through MODEL.WEIGHTS into a fresh model: the same
      tensors and detections;
+ 31. (after 17-18) the ops layer's last public functions, on the card and on
+     the CPU: convert_3d_box_to_2d and get_cuboid_verts on phase 4's b8
+     detections (800 cubes, K per image) and on the GT cubes of
+     tiny_batch(25, 512, 512, G=16), as they are and 4 m nearer (in front
+     of, straddling and behind the camera); R_to_allocentric at each cube's
+     projected centre, round-tripped through R_from_allocentric;
+     matrix_to_rotation_6d and matrix_to_quaternion on the poses,
+     round-tripped; mask_iou of phase 29's 64 depth-ransac ground maps
+     (K2's and the analytic depth's) against the scenes' true ground; uniform_topk_mask on the card's generator (its
+     count, validity and seed); card vs CPU within 1e-5 of scale, equal
+     flags and masks; each function's median ms of 5 calls;
  14. print the kernels line (K1, K1-bwd, K2; their launches on every path
      above) and, last, {"ok": true, "device": {...}}.
 
@@ -707,10 +719,6 @@ def write_omni3d_json(records, path, categories):
                    "categories": [{"id": i, "name": n} for i, n in enumerate(categories)]}, f)
 
 
-def iou(a, b) -> float:
-    return float((a & b).sum() / max((a | b).sum(), 1))
-
-
 def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
     """Phase 29: the recipe's ground pseudo-GT pipeline from phase 8's depth
     maps (the K2 path) to the artefacts training reads: (a) depth-ransac
@@ -720,7 +728,9 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
     random weights from seeds), timed, peak memory, one image profiled; (c)
     small float32 GroundingDINO and SAM, card vs CPU; (d) filter_ground,
     the priors CLI, the dataset loader and one mapper batch on the maps.
-    Returns K2's launches on this path."""
+    Returns K2's launches on this path, and for phase 31 the depth-ransac
+    maps of (a), on the K2 depth and on the analytic depth (an empty map
+    where none was written), with the true ground, stacked."""
     import numpy as np
     import torch
     from weakcube_tpu_torch.data import datasets as ds
@@ -733,6 +743,7 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
     from weakcube_tpu_torch.data.pseudo_gt import sam as sam_mod
     from weakcube_tpu_torch.entry import flagship_cfg
     from weakcube_tpu_torch.ops import flash_attention_cuda
+    from weakcube_tpu_torch.ops.boxes import mask_iou
     from weakcube_tpu_torch.tools import priors as priors_cli
 
     K2 = flash_attention_cuda.flash_attention
@@ -745,22 +756,30 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
         torch.cuda.synchronize()
         k2_launches = K2.launches
         print(f"[pgt] phase 8's depth maps were gone: re-generated, K2 launches {k2_launches}")
-    truth = {r["image_id"]: synthetic.ground_mask(r["_scene"]) for r in records}
+    truth = np.stack([synthetic.ground_mask(r["_scene"]) for r in records])
+
+    def read_maps(ground_dir):
+        """The written maps, stacked in the records' order; an empty map
+        where none was written (IoU 0)."""
+        maps = np.zeros(truth.shape, bool)
+        for i, r in enumerate(records):
+            path = os.path.join(ground_dir, f"{r['image_id']}.npz")
+            if os.path.exists(path):
+                with np.load(path) as z:
+                    m = z["ground"]
+                if m.dtype != bool or m.shape != (r["height"], r["width"]):
+                    fail(f"{path}: ground {m.dtype} {m.shape}")
+                maps[i] = m
+        return maps
+
+    def ious_of(maps):
+        return mask_iou(torch.from_numpy(maps).to(dev), torch.from_numpy(truth).to(dev)).tolist()
 
     # -- (a) depth-ransac ground maps on the card ----------------------------
     ground_dir = os.path.join(artifacts_root, "ground_maps")
     res = ggs.generate(records, ground_dir, depth_dir, artifacts_root=artifacts_root, device=dev)
-    ious = []
-    for r in records:
-        path = os.path.join(ground_dir, f"{r['image_id']}.npz")
-        if os.path.exists(path):
-            with np.load(path) as z:
-                m = z["ground"]
-            if m.dtype != bool or m.shape != (r["height"], r["width"]):
-                fail(f"{path}: ground {m.dtype} {m.shape}")
-            ious.append(iou(m, truth[r["image_id"]]))
-        else:
-            ious.append(0.0)
+    maps = read_maps(ground_dir)
+    ious = ious_of(maps)
     if res["written"] + len(res["no_ground"]) != len(records):
         fail(f"depth-ransac: {res['written']} maps and {len(res['no_ground'])} no-ground ids "
              f"for {len(records)} records")
@@ -774,15 +793,8 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
     sdir = os.path.join(artifacts_root, "analytic")
     res_a = ggs.generate(records, os.path.join(sdir, "ground_maps"), "unused", artifacts_root=sdir,
                          depth_loader=lambda r: synthetic.render_depth(r["_scene"]), device=dev)
-    ious_a = []
-    for r in records:
-        path = os.path.join(sdir, "ground_maps", f"{r['image_id']}.npz")
-        ok = os.path.exists(path)
-        if ok:
-            with np.load(path) as z:
-                ious_a.append(iou(z["ground"], truth[r["image_id"]]))
-        else:
-            ious_a.append(0.0)
+    maps_a = read_maps(os.path.join(sdir, "ground_maps"))
+    ious_a = ious_of(maps_a)
     ms = res_a["image_ms"][1:]
     print(f"[pgt] {card}: depth-ransac on the scenes' analytic depth (the --synthetic CLI): "
           f"{res_a['written']} maps; IoU median {statistics.median(ious_a):.4f}, min "
@@ -940,7 +952,8 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
           f"ids in its no_ground_idx.csv); one mapper batch of 8 from the written depth and "
           f"ground maps: {int(batch['ground_valid'].sum())} ground masks, cached ground normals "
           f"finite, {int(ok.sum())} valid")
-    return k2_launches
+    return k2_launches, {"maps": np.concatenate([maps, maps_a]),
+                         "truth": np.concatenate([truth, truth])}
 
 
 def k1_backward_checks(dev, fwd_levels, fwd_boxes):
@@ -1652,6 +1665,117 @@ def geometry_phases(dev):
           f"points); |cos| to the true plane >= {ran['min_cos_to_truth']:.6f}; {ran['ms']:.3f} ms "
           f"on the card (median of 5: {' '.join(f'{x:.3f}' for x in ran_rounds)})")
     return {"iou3d_ms": iou["ms"], "iou3d_err": iou["max_abs_err"], "ransac_ms": ran["ms"]}
+
+
+def ops_phase(dev, det, ground, card) -> dict:
+    """Phase 31: the ops layer's last public functions on the card and on
+    the CPU, on the main path's own data: phase 4's detections (b8, K per
+    image), the b25 GT cubes of tiny_batch, phase 29's ground maps. Card vs
+    CPU within 1e-5 of scale, equal flags and masks; each function's median
+    ms of 5 calls on the card (CUDA events). Returns the numbers PERF.md
+    keeps."""
+    import torch
+    from weakcube_tpu_torch.entry import tiny_batch
+    from weakcube_tpu_torch.ops import boxes, cuboids, rotations, sampling
+    tol = 1e-5  # of the reference's largest magnitude: float32, other sum orders
+    cpu = torch.device("cpu")
+    tb = tiny_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, G=TRAIN_GT, seed=0, device=dev)
+    gt = tb["gt"]  # boxes3D: projected centre (2), z, dims (3), centre (3)
+    gt_box3d = torch.cat([gt.boxes3D[..., 6:9], gt.boxes3D[..., 3:6]], -1)
+    # the GT cubes 4 m nearer (z in -2..4): in front of, straddling and
+    # behind the camera, so that the clipping branch runs
+    nearer = gt_box3d - torch.tensor([0.0, 0, 4, 0, 0, 0], device=dev)
+    sets = {f"phase 4's detections (b{det['centers'].shape[0]} x {det['centers'].shape[1]})":
+            (det["K"][:, None], torch.cat([det["centers"], det["dims"]], -1).float(),
+             det["poses"].float(), det["valid"], 50),
+            f"tiny_batch GT cubes (b{TRAIN_BATCH} x {TRAIN_GT})":
+            (tb["K"][:, None], gt_box3d, gt.poses, gt.valid, 3),
+            "the GT cubes 4 m nearer": (tb["K"][:, None], nearer, gt.poses, gt.valid, 3)}
+    del tb
+    errs, ms = {}, {}
+
+    def compare(name, got, want, exact=False):
+        got, want = got.cpu(), want.cpu()
+        if exact or got.dtype == torch.bool:
+            if not torch.equal(got, want):
+                fail(f"phase 31: {name}: card and CPU differ in {int((got != want).sum())} "
+                     f"of {got.numel()} values")
+            err = 0.0
+        else:
+            err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+            if not err <= tol:
+                fail(f"phase 31: {name}: {err:.3e} of scale (tolerance {tol})")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def both(fn, *args):
+        """fn on the card's tensors and on their CPU copies."""
+        return fn(*args), fn(*(a.to(cpu) if torch.is_tensor(a) else a for a in args))
+
+    def timed(name, fn):
+        ms[name] = statistics.median(timed_ms(fn, 1, warmup=1) for _ in range(5))
+
+    for label, (K, box3d, R, valid, k) in sets.items():
+        for xywh in (True, False):
+            for clip in (0.0, float(TRAIN_SIZE)):
+                out = both(lambda *a: cuboids.convert_3d_box_to_2d(
+                    *a, clipw=clip, cliph=clip, XYWH=xywh), K, box3d, R)
+                compare("convert_3d_box_to_2d box", out[0][0], out[1][0])
+                compare("convert_3d_box_to_2d flags", torch.stack(out[0][1:]),
+                        torch.stack(out[1][1:]))
+        behind, fully = out[0][1:]
+        for c, w in zip(*both(cuboids.get_cuboid_verts, K, box3d, R)):
+            compare("get_cuboid_verts", c, w)
+        # the pose at each cube's projected centre, there and back
+        uv = cuboids.project_points(K, box3d[..., None, :3])[..., 0, :2]
+        u, v = uv[..., 0].contiguous(), uv[..., 1].contiguous()
+        allo = both(cuboids.R_to_allocentric, K, R, u, v)
+        compare("R_to_allocentric", *allo)
+        compare("R_to_allocentric round trip", cuboids.R_from_allocentric(K, allo[0], u, v), R)
+        # the poses made orthonormal in float32 (Gram-Schmidt of their 6D),
+        # then the quaternion there and back
+        Ro = rotations.rotation_6d_to_matrix(rotations.matrix_to_rotation_6d(R))
+        compare("matrix_to_rotation_6d round trip",
+                rotations.rotation_6d_to_matrix(rotations.matrix_to_rotation_6d(Ro)), Ro)
+        q = both(rotations.matrix_to_quaternion, Ro)
+        compare("matrix_to_quaternion", *q)
+        compare("matrix_to_quaternion round trip", rotations.quaternion_to_matrix(q[0]), Ro)
+        if label.startswith("phase 4"):
+            timed("convert_3d_box_to_2d", lambda: cuboids.convert_3d_box_to_2d(
+                K, box3d, R, float(TRAIN_SIZE), float(TRAIN_SIZE)))
+            timed("get_cuboid_verts", lambda: cuboids.get_cuboid_verts(K, box3d, R))
+            timed("R_to_allocentric", lambda: cuboids.R_to_allocentric(K, R, u, v))
+            timed("matrix_to_rotation_6d", lambda: rotations.matrix_to_rotation_6d(Ro))
+            timed("matrix_to_quaternion", lambda: rotations.matrix_to_quaternion(Ro))
+        # the uniform sampler: min(k, valid) picks in each row, all valid;
+        # one seed, one mask
+        pick = [sampling.uniform_topk_mask(torch.Generator(device=dev).manual_seed(31), valid, k)
+                for _ in range(2)]
+        if not torch.equal(pick[0], pick[1]) or bool((pick[0] & ~valid).any()) or \
+                not torch.equal(pick[0].sum(-1), valid.sum(-1).clamp(max=k)):
+            fail(f"phase 31: uniform_topk_mask on {label} (k {k}): picks per row "
+                 f"{pick[0].sum(-1).tolist()}, valid per row {valid.sum(-1).tolist()}, "
+                 f"one seed one mask {torch.equal(pick[0], pick[1])}")
+        print(f"[ops] {label}: convert_3d_box_to_2d (XYWH on and off, clip 0 and "
+              f"{TRAIN_SIZE} px), get_cuboid_verts, R_to_allocentric and its round trip, "
+              f"matrix_to_rotation_6d and matrix_to_quaternion and their round trips: card vs "
+              f"CPU within {tol} of scale, equal flags ({int(behind.sum())} cubes with a corner "
+              f"behind the camera, {int(fully.sum())} of them fully); uniform_topk_mask k {k}: "
+              f"{pick[0].sum(-1).tolist()} picks per row, all valid, one seed one mask")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    timed("uniform_topk_mask", lambda: sampling.uniform_topk_mask(gen, det["valid"], 50))
+    maps, truth = (torch.from_numpy(ground[k]).to(dev) for k in ("maps", "truth"))
+    ious = both(boxes.mask_iou, maps, truth)
+    compare("mask_iou", *ious, exact=True)
+    timed("mask_iou", lambda: boxes.mask_iou(maps, truth))
+    print(f"[ops] mask_iou of phase 29's {maps.shape[0]} depth-ransac ground maps "
+          f"({maps.shape[1]}x{maps.shape[2]}; on K2's depth, then on the analytic depth; "
+          f"{int(maps.flatten(1).any(1).sum())} not empty) against the true ground, card vs "
+          f"CPU: equal (median IoU {statistics.median(ious[0].tolist()):.4f})")
+    print(f"[ops] {card}: median ms of 5 calls on the card (CUDA events; the b8 detections, "
+          f"mask_iou on the {maps.shape[0]} maps): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + "; largest card vs CPU error of scale: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return {"ms": ms, "errs": errs}
 
 
 EVAL_SCENES, EVAL_BATCH = 64, 32
@@ -3201,6 +3325,8 @@ def main() -> None:
 
     # -- 10. K1-bwd against its plain version --------------------------------
     k1_backward_checks(dev, levels, props.boxes.contiguous())
+    det31 = {"centers": det.centers3D, "dims": det.dims3D, "poses": det.poses3D,
+             "valid": det.valid, "K": batch["K"]}  # phase 31's cubes
     del model, feats, levels, calls, det, det2d, props
     torch.cuda.empty_cache()
 
@@ -3213,7 +3339,7 @@ def main() -> None:
         k2, depth_run = depth_phases(dev, pgt_root)
         torch.cuda.empty_cache()
         t = time.time()
-        pgt_k2 = pseudo_gt_phase(dev, depth_run, pgt_root, card)
+        pgt_k2, ground31 = pseudo_gt_phase(dev, depth_run, pgt_root, card)
         print(f"[phase] 29 (the pseudo-GT pipeline) took {time.time() - t:.1f} s")
     finally:
         shutil.rmtree(pgt_root, ignore_errors=True)
@@ -3267,6 +3393,8 @@ def main() -> None:
                 ("15 (train CLI)", lambda: cli_phases(dev, cli_out)),
                 ("16 (in-graph ground plane)", lambda: ground_phase(dev)),
                 ("17-18 (IoU3D and RANSAC, card vs CPU)", lambda: geometry_phases(dev)),
+                ("31 (the ops layer's last functions, card vs CPU)",
+                 lambda: ops_phase(dev, det31, ground31, card)),
                 ("19 (eval CLI)", lambda: eval_phase(dev, cli_out)),
                 ("20 (K1 at the eval batch's shapes)", lambda: eval_k1_phase(dev, cli_out)),
                 ("21 (evaluator, card vs CPU)", lambda: evaluator_phase(dev, rep["19"][1])),

@@ -8,6 +8,7 @@ with their own (equally rounded) elementwise kernels.
 import glob
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from weakcube_tpu_torch.ops import cuboids as t_cuboids
 from weakcube_tpu_torch.ops import nms as t_nms
 from weakcube_tpu_torch.ops import pool as t_pool
 from weakcube_tpu_torch.ops import rotations as t_rot
+from weakcube_tpu_torch.ops import sampling as t_sampling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(REPO, "configs", "*.yaml")))
@@ -35,6 +37,12 @@ CONFIGS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(REPO, "conf
 def close(t, j, atol=1e-5, rtol=1e-5):
     np.testing.assert_allclose(t.numpy() if isinstance(t, torch.Tensor) else t,
                                np.asarray(j), atol=atol, rtol=rtol)
+
+
+def close_of_scale(t, j, rel):
+    """|t - j| within rel of j's largest magnitude."""
+    j = np.asarray(j)
+    np.testing.assert_allclose(t.numpy(), j, atol=rel * np.abs(j).max(), rtol=0)
 
 
 def random_boxes(rng, shape, size=100.0, min_wh=1.0, max_wh=40.0):
@@ -85,6 +93,22 @@ class TestBoxes:
             close(t_boxes.apply_deltas(torch.from_numpy(deltas), torch.from_numpy(boxes), w),
                   j_boxes.apply_deltas(jnp.asarray(deltas), jnp.asarray(boxes), w),
                   atol=1e-4, rtol=1e-5)
+
+    def test_box_formats(self):
+        b = random_boxes(np.random.default_rng(11), (3, 5))
+        for t_fn, j_fn in ((t_boxes.xyxy_to_xywh, j_boxes.xyxy_to_xywh),
+                           (t_boxes.xywh_to_xyxy, j_boxes.xywh_to_xyxy)):
+            close(t_fn(torch.from_numpy(b)), j_fn(jnp.asarray(b)), atol=0, rtol=0)
+
+    def test_mask_iou(self):
+        rng = np.random.default_rng(12)
+        a = rng.random((3, 5, 17, 23)) < 0.4
+        b = rng.random((3, 5, 17, 23)) < 0.6
+        a[1, 2] = b[1, 2] = False                     # empty union: IoU 0
+        a[2, 0] = b[2, 0]                             # equal masks: IoU 1
+        got = t_boxes.mask_iou(torch.from_numpy(a), torch.from_numpy(b))
+        assert got.dtype == torch.float32 and got[1, 2] == 0 and got[2, 0] == 1
+        close(got, j_boxes.mask_iou(jnp.asarray(a), jnp.asarray(b)), atol=0, rtol=0)
 
 
 # ------------------------------------------------------------------- NMS
@@ -182,6 +206,38 @@ class TestRotations:
         close(t_rot.axis_angle_to_matrix(torch.from_numpy(aa)),
               j_rot.axis_angle_to_matrix(jnp.asarray(aa)))
 
+    def test_matrix_to_6d_and_quaternion_f64(self):
+        """float64 at 1e-12: 64 random rotations; 180 degrees about x, y, z
+        and the identity (each picks another candidate); tied keys (w = z
+        at 90 degrees about z, x = y at 180 about (1, 1, 0), all four at 120
+        about (1, 1, 1)), where both take the first; the round trip through
+        quaternion_to_matrix."""
+        q = np.random.default_rng(13).normal(size=(64, 4))
+        R = t_rot.quaternion_to_matrix(torch.from_numpy(q)).numpy()
+        special = np.array([np.diag([1.0, -1, -1]), np.diag([-1.0, 1, -1]),
+                            np.diag([-1.0, -1, 1]), np.eye(3),
+                            [[0.0, -1, 0], [1, 0, 0], [0, 0, 1]],
+                            [[0.0, 1, 0], [1, 0, 0], [0, 0, -1]],
+                            [[0.0, 0, 1], [1, 0, 0], [0, 1, 0]]])
+        R = np.concatenate([R, special])
+        with jax.enable_x64():
+            jR = jnp.asarray(R)
+            j6, jq = jax.jit(lambda r: (j_rot.matrix_to_rotation_6d(r),
+                                        j_rot.matrix_to_quaternion(r)))(jR)
+            assert jq.dtype == jnp.float64
+        tR = torch.from_numpy(R)
+        t6, tq = t_rot.matrix_to_rotation_6d(tR), t_rot.matrix_to_quaternion(tR)
+        assert tq.dtype == torch.float64
+        close(t6, j6, atol=0, rtol=0)
+        close(tq, jq, atol=1e-12, rtol=0)
+        # the branch each special rotation takes: its largest component
+        assert np.abs(tq.numpy()[64:]).argmax(-1).tolist() == [1, 2, 3, 0, 0, 1, 0]
+        assert (tq[:, 0] >= 0).all()
+        close(t_rot.quaternion_to_matrix(tq), R, atol=1e-12, rtol=0)
+        close(t_rot.rotation_6d_to_matrix(t6), R, atol=1e-12, rtol=0)
+        flipped = t_rot.standardize_quaternion(-tq)
+        close(flipped[tq[:, 0] > 0], tq[tq[:, 0] > 0].numpy(), atol=0, rtol=0)
+
 
 # --------------------------------------------------------------- cuboids
 class TestCuboids:
@@ -212,6 +268,84 @@ class TestCuboids:
         close(t_cuboids.scaled_sigmoid(torch.from_numpy(x), torch.from_numpy(dims),
                                        torch.from_numpy(2 * dims)),
               j_cuboids.scaled_sigmoid(jnp.asarray(x), jnp.asarray(dims), jnp.asarray(2 * dims)))
+
+    def test_convert_3d_box_to_2d_f64(self):
+        """float64 at 1e-10 of scale: cubes in front of, partly behind and
+        fully behind the camera, XYWH on and off, with and without
+        clipw / cliph; the behind flags equal."""
+        rng = np.random.default_rng(14)
+        n = 24
+        box = np.concatenate([rng.uniform(-3, 3, (n, 2)), rng.uniform(2, 20, (n, 1)),
+                              rng.uniform(0.3, 3, (n, 3))], -1)
+        box[8:16, 2] = rng.uniform(-0.5, 1.0, 8)      # straddling z = min_z
+        box[8:16, 3:] = rng.uniform(2.0, 4.0, (8, 3))
+        box[16:, 2] = rng.uniform(-20, -3, 8)         # fully behind
+        R = t_rot.quaternion_to_matrix(torch.from_numpy(rng.normal(size=(n, 4)))).numpy()
+        K = np.array([[500.0, 0, 320], [0, 510.0, 240], [0, 0, 1]])
+        cases = [dict(clipw=640.0, cliph=480.0, XYWH=False), dict(clipw=640.0, cliph=480.0),
+                 dict(XYWH=False), dict()]
+        with jax.enable_x64():
+            j_out, j_verts = jax.jit(lambda *a: (
+                [j_cuboids.convert_3d_box_to_2d(*a, **kw) for kw in cases],
+                j_cuboids.get_cuboid_verts(*a)))(jnp.asarray(K), jnp.asarray(box), jnp.asarray(R))
+        tK, tb, tR = torch.from_numpy(K), torch.from_numpy(box), torch.from_numpy(R)
+        for kw, (jb, jbehind, jfully) in zip(cases, j_out):
+            b, behind, fully = t_cuboids.convert_3d_box_to_2d(tK, tb, tR, **kw)
+            assert b.dtype == torch.float64
+            close_of_scale(b, jb, 1e-10)
+            close(behind, jbehind, atol=0, rtol=0)
+            close(fully, jfully, atol=0, rtol=0)
+        assert behind[:8].sum() == 0 and 0 < behind[8:16].sum() and fully[16:].all()
+        assert not fully[:16].any()
+        for t, j in zip(t_cuboids.get_cuboid_verts(tK, tb, tR), j_verts):
+            close_of_scale(t, j, 1e-10)
+
+    def test_R_to_allocentric_f64(self):
+        """float64 at 1e-12 on 32 poses at 32 pixels, and R_from_allocentric
+        its inverse; the virtual scale on tests/test_cuboids.py's values."""
+        rng = np.random.default_rng(15)
+        R = t_rot.quaternion_to_matrix(torch.from_numpy(rng.normal(size=(32, 4)))).numpy()
+        K = np.tile(np.array([[500.0, 0, 320], [0, 510.0, 240], [0, 0, 1]]), (32, 1, 1))
+        u, v = rng.uniform(0, 640, 32), rng.uniform(0, 480, 32)
+        u[0], v[0] = 320.0, 240.0                     # on the optical axis: M = I
+        with jax.enable_x64():
+            jR = jax.jit(j_cuboids.R_to_allocentric)(jnp.asarray(K), jnp.asarray(R),
+                                                     jnp.asarray(u), jnp.asarray(v))
+        args = [torch.from_numpy(x) for x in (K, R, u, v)]
+        tR = t_cuboids.R_to_allocentric(*args)
+        close(tR, jR, atol=1e-12, rtol=0)
+        close(tR[0], R[0], atol=0, rtol=0)
+        back = t_cuboids.R_from_allocentric(args[0], tR, args[2], args[3])
+        close(back, R, atol=1e-12, rtol=0)
+        values = (512.0, 512.0, 500.0, 480.0)
+        assert t_cuboids.compute_virtual_scale_from_focal_spaces(*values) == \
+            float(j_cuboids.compute_virtual_scale_from_focal_spaces(*values))
+
+
+# -------------------------------------------------------------- sampling
+def test_uniform_topk_mask():
+    """Random draws differ between the frameworks, so the properties: rows
+    of 0, 3 and 40 valid items with k = 20 get min(k, valid) picks, all
+    valid; one seed gives one mask; over 2000 draws each valid item's count
+    is within 5 sigma of 2000 k / n_valid."""
+    k, n, draws = 20, 64, 2000
+    valid = torch.zeros((3, n), dtype=torch.bool)
+    valid[1, [5, 30, 63]] = True
+    valid[2, torch.randperm(n, generator=torch.Generator().manual_seed(0))[:40]] = True
+    masks = [t_sampling.uniform_topk_mask(torch.Generator().manual_seed(3), valid, k)
+             for _ in range(2)]
+    assert torch.equal(masks[0], masks[1])
+    many = t_sampling.uniform_topk_mask(torch.Generator().manual_seed(4),
+                                        valid.expand(draws, 3, n), k)
+    n_valid = valid.sum(-1)
+    assert not (many & ~valid).any()
+    assert torch.equal(many.sum(-1), torch.minimum(n_valid, torch.tensor(k)).expand(draws, 3))
+    counts = many.sum(0).double()
+    for row in (1, 2):
+        p = k / n_valid[row].item() if n_valid[row] > k else 1.0
+        sigma = (draws * p * (1 - p)) ** 0.5
+        got = counts[row][valid[row]]
+        assert (got - draws * p).abs().max() <= 5 * sigma, (row, got)
 
 
 # ---------------------------------------------------------- anchors, pool

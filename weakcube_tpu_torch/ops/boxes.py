@@ -1,6 +1,6 @@
-"""2D box ops (weakcube_tpu/ops/boxes.py): area, clipping, pairwise IoU and
-IoA, matched IoU and GIoU, the detectron2 Box2BoxTransform encode and
-decode, and smooth-L1.
+"""2D box ops (weakcube_tpu/ops/boxes.py): area, the XYWH <-> XYXY formats,
+clipping, pairwise IoU and IoA, matched IoU and GIoU, the detectron2
+Box2BoxTransform encode and decode, smooth-L1, and the IoU of masks.
 
 Boxes are XYXY float tensors of shape (..., 4). Degenerate boxes give 0 area,
 not NaN.
@@ -18,6 +18,16 @@ def area(boxes: torch.Tensor) -> torch.Tensor:
     w = (boxes[..., 2] - boxes[..., 0]).clamp(min=0.0)
     h = (boxes[..., 3] - boxes[..., 1]).clamp(min=0.0)
     return w * h
+
+
+def xywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    return torch.stack(
+        [b[..., 0], b[..., 1], b[..., 0] + b[..., 2], b[..., 1] + b[..., 3]], dim=-1)
+
+
+def xyxy_to_xywh(b: torch.Tensor) -> torch.Tensor:
+    return torch.stack(
+        [b[..., 0], b[..., 1], b[..., 2] - b[..., 0], b[..., 3] - b[..., 1]], dim=-1)
 
 
 def clip_boxes(boxes: torch.Tensor, im_wh: torch.Tensor) -> torch.Tensor:
@@ -132,3 +142,12 @@ def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,
     ph = torch.exp(dh) * h
     return torch.stack(
         [pcx - 0.5 * pw, pcy - 0.5 * ph, pcx + 0.5 * pw, pcy + 0.5 * ph], dim=-1)
+
+
+def mask_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU of boolean masks over the last two axes, from float32 sums; 0
+    where the union is empty."""
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    inter = torch.sum(af * bf, dim=(-2, -1))
+    union = torch.sum(torch.maximum(af, bf), dim=(-2, -1))
+    return torch.where(union > 0, inter / union.clamp(min=1e-12), torch.zeros_like(inter))

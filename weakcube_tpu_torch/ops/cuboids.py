@@ -1,6 +1,7 @@
-"""Cuboid geometry (weakcube_tpu/ops/cuboids.py): corners, projection,
-allocentric -> egocentric pose, back-projection, scaled sigmoid and the
-`Cubes` struct with its projected ("bube") corners and enclosing boxes.
+"""Cuboid geometry (weakcube_tpu/ops/cuboids.py): corners, projection, a
+cube's enclosing 2D box with behind-camera clipping, the virtual depth
+scale, egocentric <-> allocentric pose, back-projection, scaled sigmoid and
+the `Cubes` struct with its projected ("bube") corners and enclosing boxes.
 
 Conventions as in the JAX package: a cube is the 15-vector
 [center(3), dims whl(3), R row-major (9)]; K is a 3x3 pinhole intrinsics
@@ -58,6 +59,43 @@ def project_points(K: torch.Tensor, pts3d: torch.Tensor, min_z: float = 1e-6) ->
     return torch.cat([proj[..., :2] / safe_z, z], dim=-1)
 
 
+def get_cuboid_verts(K: torch.Tensor, box3d: torch.Tensor, R: Optional[torch.Tensor] = None):
+    """Projected cuboid corners: (verts2d (..., 8, 3) = (u, v, z), verts3d
+    (..., 8, 3))."""
+    verts3d = get_cuboid_verts_3d(box3d, R)
+    return project_points(K, verts3d), verts3d
+
+
+def convert_3d_box_to_2d(K: torch.Tensor, box3d: torch.Tensor, R: Optional[torch.Tensor] = None,
+                         clipw=0.0, cliph=0.0, XYWH: bool = True, min_z: float = 0.20):
+    """The 2D box enclosing a cube's projected corners. A corner at
+    z <= min_z (behind the camera) counts as the image corner of its 3D
+    (x, y) sign quadrant: x clipw - 1 where x > 0, else 0; y likewise with
+    cliph (floats, or tensors broadcasting against the cubes).
+    Returns (box2d (..., 4), XYWH or XYXY; behind_camera (...), any corner
+    behind; fully_behind (...), every corner behind)."""
+    verts2d, verts3d = get_cuboid_verts(K, box3d, R)
+    behind = verts2d[..., 2] <= min_z
+    u, v = verts2d[..., 0], verts2d[..., 1]
+    zero = torch.zeros_like(u)
+    bound_x = torch.where(verts3d[..., 0] > 0, torch.as_tensor(clipw - 1.0, dtype=u.dtype,
+                                                               device=u.device), zero)
+    bound_y = torch.where(verts3d[..., 1] > 0, torch.as_tensor(cliph - 1.0, dtype=v.dtype,
+                                                               device=v.device), zero)
+    u = torch.where(behind, bound_x, u)
+    v = torch.where(behind, bound_y, v)
+    x1, y1 = torch.amin(u, dim=-1), torch.amin(v, dim=-1)
+    x2, y2 = torch.amax(u, dim=-1), torch.amax(v, dim=-1)
+    box2d = torch.stack([x1, y1, x2 - x1, y2 - y1] if XYWH else [x1, y1, x2, y2], dim=-1)
+    return box2d, behind.any(-1), behind.all(-1)
+
+
+def compute_virtual_scale_from_focal_spaces(f, H, f0, H0):
+    """Depth scale from the real focal space (f0, H0) to the virtual one
+    (f, H)."""
+    return (H0 * f) / (f0 * H)
+
+
 def _allocentric_correction(K: torch.Tensor, u: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
     """Rotation M aligning the optical axis with the viewing ray through
@@ -71,6 +109,15 @@ def _allocentric_correction(K: torch.Tensor, u: torch.Tensor,
     norm = torch.linalg.norm(axis, dim=-1, keepdim=True)
     axis_unit = axis / norm.clamp(min=1e-12)
     return rotations.axis_angle_to_matrix(angle[..., None] * axis_unit)
+
+
+def R_to_allocentric(K: torch.Tensor, R: torch.Tensor,
+                     u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Egocentric -> allocentric pose at pixel (u, v): R_view = M^T @ R, in
+    the promoted dtype of M and R; R_from_allocentric is its inverse."""
+    M = _allocentric_correction(K, u, v)
+    dt = torch.promote_types(M.dtype, R.dtype)
+    return M.transpose(-1, -2).to(dt) @ R.to(dt)
 
 
 def R_from_allocentric(K: torch.Tensor, R_view: torch.Tensor,

@@ -1,7 +1,7 @@
 """Rotation representation conversions (weakcube_tpu/ops/rotations.py): the
-6d, quaternion and euler parameterisations the cube head can select, the
-axis-angle map the allocentric pose correction uses, and the rotation
-angles the weak pose losses compare.
+6d, quaternion and euler parameterisations the cube head can select and
+the inverses of the first two, the axis-angle map the allocentric pose
+correction uses, and the rotation angles the weak pose losses compare.
 
 All functions broadcast over leading batch dimensions. Matrices act on
 column vectors: ``x_rotated = R @ x``.
@@ -28,6 +28,11 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     return torch.stack((b1, b2, b3), dim=-2)
 
 
+def matrix_to_rotation_6d(R: torch.Tensor) -> torch.Tensor:
+    """Inverse of rotation_6d_to_matrix: the first two rows, flattened."""
+    return torch.cat((R[..., 0, :], R[..., 1, :]), dim=-1)
+
+
 def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Quaternion (w, x, y, z), normalised here -> rotation (..., 3, 3)."""
     q = _normalize(q)
@@ -42,6 +47,37 @@ def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def standardize_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Flip the sign so that w >= 0 (the double cover)."""
+    return torch.where(q[..., 0:1] < 0, -q, q)
+
+
+def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w, x, y, z), w >= 0, without a
+    branch: all four scaled candidates are built and the one keyed by the
+    largest diagonal combination is taken (the first of tied keys, as
+    jnp.argmax)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    # 4 x each component's square, clipped at 0
+    qw2 = (1 + m00 + m11 + m22).clamp(min=0.0)
+    qx2 = (1 + m00 - m11 - m22).clamp(min=0.0)
+    qy2 = (1 - m00 + m11 - m22).clamp(min=0.0)
+    qz2 = (1 - m00 - m11 + m22).clamp(min=0.0)
+    # candidate quaternions, each stable where its key component dominates
+    cands = torch.stack([
+        torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], dim=-1)], dim=-2)
+    keys = torch.stack([qw2, qx2, qy2, qz2], dim=-1)
+    cands = cands / (2.0 * torch.sqrt(keys.clamp(min=_EPS)))[..., None]
+    best = torch.argmax(keys, dim=-1)
+    q = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 4)))
+    return standardize_quaternion(_normalize(q[..., 0, :]))
 
 
 def _axis_rotation(angle: torch.Tensor, axis: str) -> torch.Tensor:

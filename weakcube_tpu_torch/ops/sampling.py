@@ -40,6 +40,11 @@ def gumbel_topk_mask(generator: torch.Generator, log_weights: torch.Tensor,
     return picked.scatter(-1, idx, True) & valid
 
 
+def uniform_topk_mask(generator: torch.Generator, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Up to k valid items of each row, uniformly (d2's subsample_labels)."""
+    return gumbel_topk_mask(generator, torch.zeros(valid.shape, device=valid.device), valid, k)
+
+
 def rank_budget_mask(scores: torch.Tensor, valid: torch.Tensor,
                      budget: torch.Tensor, max_budget: int) -> torch.Tensor:
     """valid & (descending rank of the score < budget) for each row, from a
