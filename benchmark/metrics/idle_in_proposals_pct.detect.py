@@ -1,0 +1,6 @@
+"""Per-layer metric `idle_in_proposals_pct.detect`: see harness/program_spans.py::idle_in_pct."""
+from harness import program_spans
+
+
+def read(layer: dict):
+    return program_spans.idle_in_pct(layer, "detect", "model.proposals")

@@ -271,6 +271,48 @@ def test_small_model_card_matches_cpu(card):
                                        getattr(d_cpu, name)[i][vc], atol=1e-3, rtol=1e-3)
 
 
+def test_every_sync_lies_in_a_sync_span(card):
+    """Under CUDA's sync debug mode, each sync that a small training step
+    and a detection forward make on the card falls inside a `sync` span of
+    utils/trace.py, one sync to a span: what the benchmark's host_ms_* and
+    host_syncs_* readers take from the spans is what CUDA reports."""
+    import time
+    import warnings
+    from weakcube_tpu_torch.entry import dims_priors, make_batch, tiny_batch, tiny_cfg
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
+    from weakcube_tpu_torch.utils import trace
+    cfg = tiny_cfg(128, dla=True)
+    model = build_model(cfg, dims_priors(cfg.MODEL.ROI_HEADS.NUM_CLASSES), device=card, seed=1)
+    state, opt = create_train_state(cfg, model)
+    batch = tiny_batch(2, 128, 128, device=card)
+    state, _ = train_step(model, opt, state, batch, torch.Generator(card).manual_seed(0))
+    images = make_batch(2, 128, 128, seed=3, device=card)
+    seen = []
+    trace.take()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = lambda msg, *a, **k: seen.append((time.time_ns(), str(msg)))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                train_step(model, opt, state, batch, torch.Generator(card).manual_seed(1))
+                with torch.inference_mode():
+                    model.eval()(images)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    spans = trace.take()
+    roots = [s for s in spans if s.parent is None]
+    assert sorted(r.name for r in roots) == ["model.forward", "train.step"]
+    syncs = [s for s in spans if s.name == "sync"]
+    inside = [t for t, msg in seen if "synchroniz" in msg
+              and any(r.start_ns <= t <= r.end_ns for r in roots)]
+    assert len(inside) == len(syncs) >= 5
+    for t in inside:
+        assert sum(s.start_ns <= t <= s.end_ns for s in syncs) == 1
+
+
 def match(a, b, i):
     """Image i's valid detections of a matched greedily to b's by class,
     score and box (clipped degenerate boxes may repeat)."""

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..structures import Detections, Proposals
+from ..utils.trace import span
 from . import anchors as anchor_lib
 from . import rpn as rpn_lib
 from .backbone.build import build_backbone
@@ -130,17 +131,25 @@ class RCNN3D(nn.Module):
                 ) -> Union[Detections, Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
         """Eval mode: Detections. Training mode: (losses, metrics), with the
         anchor and RoI samples drawn from `generator` (on the batch's
-        device)."""
-        feats = self.backbone(self._prep_image(batch["image"]))
-        if not self.training:
-            proposals = self._proposals_from_feats(feats, batch)
-            return self.roi_heads(feats, proposals, batch["K"], batch["image_wh"])
-        rpn_losses, proposals = self._rpn_train(feats, batch, generator)
-        losses, metrics = self.roi_heads.forward_train(
-            feats, proposals, batch["gt"], batch["K"], batch["image_wh"], generator,
-            metrics_tick=batch.get("metrics_tick"), **self._roi_extra(batch))
-        losses.update(rpn_losses)
-        return losses, metrics
+        device). Under a profiler it records the spans model.forward,
+        model.backbone, model.proposals and model.roi_heads
+        (utils/trace.py)."""
+        with span("model.forward"):
+            with span("model.backbone"):
+                feats = self.backbone(self._prep_image(batch["image"]))
+            if not self.training:
+                with span("model.proposals"):
+                    proposals = self._proposals_from_feats(feats, batch)
+                with span("model.roi_heads"):
+                    return self.roi_heads(feats, proposals, batch["K"], batch["image_wh"])
+            with span("model.proposals"):
+                rpn_losses, proposals = self._rpn_train(feats, batch, generator)
+            with span("model.roi_heads"):
+                losses, metrics = self.roi_heads.forward_train(
+                    feats, proposals, batch["gt"], batch["K"], batch["image_wh"], generator,
+                    metrics_tick=batch.get("metrics_tick"), **self._roi_extra(batch))
+            losses.update(rpn_losses)
+            return losses, metrics
 
 
 @register_meta_arch("RCNN3D_combined_features")

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from . import rotations
 
 # corner v0..v7 as the sign pattern of the local (x = l, y = h, z = w) half
@@ -23,12 +24,21 @@ _CORNER_SIGNS = torch.tensor(
      [-1, -1, +1], [+1, -1, +1], [+1, +1, +1], [-1, +1, +1]], dtype=torch.float32)
 
 
+def _corner_signs(like: torch.Tensor) -> torch.Tensor:
+    """_CORNER_SIGNS on like's device in its dtype. On a card the copy from
+    pageable host memory blocks: the host waits for the device's queue."""
+    if like.device.type != "cuda":
+        return _CORNER_SIGNS.to(like.device, like.dtype)
+    with span("sync"):
+        return _CORNER_SIGNS.to(like.device, like.dtype)
+
+
 def get_cuboid_verts_3d(box3d: torch.Tensor, R: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., 6) [x, y, z, w, h, l] and optional (..., 3, 3) R -> corners
     (..., 8, 3)."""
     ctr = box3d[..., 0:3]
     half = 0.5 * torch.stack([box3d[..., 5], box3d[..., 4], box3d[..., 3]], dim=-1)
-    local = _CORNER_SIGNS.to(box3d.device, box3d.dtype) * half[..., None, :]
+    local = _corner_signs(box3d) * half[..., None, :]
     if R is not None:
         dt = torch.promote_types(R.dtype, local.dtype)  # einsum does not promote
         local = torch.einsum("...ij,...kj->...ki", R.to(dt), local.to(dt))

@@ -5,7 +5,10 @@ the fixed point of masked matrix passes (weakcube_tpu/ops/nms.py:21-68).
 Here the leading dimensions are a batch written out: one call runs every
 (image, level) problem of a step as one padded (M, N, N) suppress matrix, so
 the host syncs once per pass and not once per problem. Outputs are keep
-masks; callers take a fixed top-k afterwards.
+masks; callers take a fixed top-k afterwards. Under a profiler a call
+records an `nms` span holding a `sync` span per convergence check
+(utils/trace.py): a fixed point of k passes reads k + 1 checks, the last
+finding no change.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.trace import span
 from .boxes import pairwise_iou
 
 NEG_INF = -1e10
@@ -38,35 +42,41 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     Returns:
       keep: (..., N) bool mask in the ORIGINAL box order.
     """
-    lead = scores.shape[:-1]
-    n = scores.shape[-1]
-    if valid is None:
-        valid = torch.ones_like(scores, dtype=torch.bool)
-    if n == 0:
-        return valid.clone()
-    boxes = boxes.reshape(-1, n, 4)
-    valid = valid.reshape(-1, n)
-    scores = torch.where(valid, scores.reshape(-1, n),
-                         torch.full_like(scores.reshape(-1, n), NEG_INF))
-    order = torch.argsort(-scores, dim=-1, stable=True)       # descending
-    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
-    svalid = torch.gather(valid, 1, order)
+    with span("nms"):
+        lead = scores.shape[:-1]
+        n = scores.shape[-1]
+        if valid is None:
+            valid = torch.ones_like(scores, dtype=torch.bool)
+        if n == 0:
+            return valid.clone()
+        boxes = boxes.reshape(-1, n, 4)
+        valid = valid.reshape(-1, n)
+        scores = torch.where(valid, scores.reshape(-1, n),
+                             torch.full_like(scores.reshape(-1, n), NEG_INF))
+        order = torch.argsort(-scores, dim=-1, stable=True)       # descending
+        sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+        svalid = torch.gather(valid, 1, order)
 
-    iou = pairwise_iou(sboxes, sboxes)                         # (M, n, n)
-    # row j suppresses column i only if j ranks higher (j < i)
-    earlier = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(1)
-    suppress = (iou > iou_threshold) & earlier
+        iou = pairwise_iou(sboxes, sboxes)                         # (M, n, n)
+        # row j suppresses column i only if j ranks higher (j < i)
+        earlier = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(1)
+        suppress = (iou > iou_threshold) & earlier
 
-    # fixed point: every valid box starts kept; each pass kills the boxes
-    # dominated by a currently-kept higher-ranked box. Converges in
-    # max-chain-depth passes; each pass is one masked reduction.
-    kept, prev, i = svalid, ~svalid, 0
-    while i < n and bool((kept != prev).any()):
-        killed = (suppress & kept[:, :, None]).any(dim=1)
-        prev, kept = kept, svalid & ~killed
-        i += 1
-    keep = torch.zeros_like(kept).scatter(1, order, kept)
-    return keep.reshape(lead + (n,))
+        # fixed point: every valid box starts kept; each pass kills the boxes
+        # dominated by a currently-kept higher-ranked box. Converges in
+        # max-chain-depth passes; each pass is one masked reduction.
+        kept, prev, i = svalid, ~svalid, 0
+        while i < n:
+            changed = (kept != prev).any()
+            with span("sync"):  # the host waits for the pass to decide on the next
+                changed = bool(changed)
+            if not changed:
+                break
+            killed = (suppress & kept[:, :, None]).any(dim=1)
+            prev, kept = kept, svalid & ~killed
+            i += 1
+        keep = torch.zeros_like(kept).scatter(1, order, kept)
+        return keep.reshape(lead + (n,))
 
 
 def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,

@@ -26,9 +26,19 @@ whose averaging hook, `module.` key prefix, buffer broadcasts and refusal
 of parameters without a gradient (a levels > 1 DLA tree's dead
 projections) would each need undoing; the model keeps one-device code and
 state-dict keys. `total`, the finite flag and the logs then take one
-all-reduce before the step's one host sync, so every rank takes the same
-skip decision, applies (or drops) the same global BatchNorm statistics and
-logs the same global values: those of one process on the global batch.
+all-reduce before the host reads them, so every rank takes the same skip
+decision, applies (or drops) the same global BatchNorm statistics and logs
+the same global values: those of one process on the global batch.
+
+That read is one of the step's host syncs, not its only one: proposal
+selection's NMS reads its fixed point's convergence once per pass and once
+more (ops/nms.py), and on a card the weak heads' corner constant is copied
+from pageable host memory (ops/cuboids.py), so a step syncs k + 3 times for
+an NMS of k passes (benchmark/sync_audit.py lists them on the card).
+
+Under a torch.profiler session the step records the spans of utils/trace.py:
+train.step around it, train.backward, train.grad_sum (W > 1),
+train.optimizer, and a `sync` around the host's wait for the logs.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ import torch.distributed as dist
 
 from ..models.layers import BatchNorm2d, apply_batch_stats
 from ..solver import build_optimizer
+from ..utils.trace import span
 from . import distributed
 from .mesh import global_sum
 
@@ -75,21 +86,23 @@ def sum_gradients(grads) -> None:
     does not depend on the data)."""
     if distributed.process_count() == 1:
         return
-    buckets, cur, size = [], [], 0
-    for g in grads:
-        if cur and (size + g.numel() * g.element_size() > BUCKET_BYTES or g.dtype != cur[0].dtype):
+    with span("train.grad_sum"):
+        buckets, cur, size = [], [], 0
+        for g in grads:
+            if cur and (size + g.numel() * g.element_size() > BUCKET_BYTES
+                        or g.dtype != cur[0].dtype):
+                buckets.append(cur)
+                cur, size = [], 0
+            cur.append(g)
+            size += g.numel() * g.element_size()
+        if cur:
             buckets.append(cur)
-            cur, size = [], 0
-        cur.append(g)
-        size += g.numel() * g.element_size()
-    if cur:
-        buckets.append(cur)
-    flats = [torch.cat([g.reshape(-1) for g in b]) for b in buckets]
-    works = [dist.all_reduce(f, async_op=True) for f in flats]
-    for b, f, w in zip(buckets, flats, works):
-        w.wait()
-        for g, x in zip(b, torch.split(f, [g.numel() for g in b])):
-            g.copy_(x.view_as(g))
+        flats = [torch.cat([g.reshape(-1) for g in b]) for b in buckets]
+        works = [dist.all_reduce(f, async_op=True) for f in flats]
+        for b, f, w in zip(buckets, flats, works):
+            w.wait()
+            for g, x in zip(b, torch.split(f, [g.numel() for g in b])):
+                g.copy_(x.view_as(g))
 
 
 def train_step(model: nn.Module, optimizer, state: TrainState, batch: dict,
@@ -97,41 +110,46 @@ def train_step(model: nn.Module, optimizer, state: TrainState, batch: dict,
                ) -> Tuple[TrainState, Dict[str, float]]:
     """One step; returns the new state and the logs (every loss and metric,
     total_loss, diverging, grad_finite) as floats."""
-    model.train()
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    for p in params:
-        p.grad = None
-    losses, metrics = model(dict(batch, metrics_tick=state.step % METRICS_PERIOD == 0),
-                            generator)
-    # the logs in float32 (float64 stays)
-    dt = torch.promote_types(next(iter(losses.values())).dtype, torch.float32)
-    total = torch.stack([v.to(dt) for v in losses.values()]).sum()
-    total.backward()
-    grads = [p.grad for p in params if p.grad is not None]
-    sum_gradients(grads)
-    grad_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-    # the step's one host sync: the skip decision and the logs (each rank's
-    # share summed over the ranks; the summed flag is W where all are finite)
-    names = [*losses, *metrics]
-    vals = global_sum(torch.stack([total.detach(), grad_finite.to(dt),
-                                     *(v.detach().to(dt) for v in losses.values()),
-                                     *(v.detach().to(dt) for v in metrics.values())])).tolist()
-    total_v, finite = vals[0], vals[1] == distributed.process_count()
-    ema = state.loss_ema if state.ema_init else total_v
-    diverging = not math.isfinite(total_v) or total_v > EXPLOSION_FACTOR * max(ema, 1e-8)
-    skip = diverging or not finite
-    recorded = min(max(total_v, 0.0), 1.0) if diverging else total_v
-    if not math.isfinite(recorded):
-        recorded = 1.0
-    new_ema = ema * (1 - GAMMA) + GAMMA * recorded if state.ema_init else recorded
-    if skip:
-        for m in model.modules():
-            if isinstance(m, BatchNorm2d):
-                m.pending = None
-    else:
-        optimizer.step()
-        apply_batch_stats(model)
-    logs = dict(zip(names, vals[2:]))
-    logs.update(total_loss=total_v, diverging=float(diverging), grad_finite=float(finite))
-    return TrainState(step=state.step + 1, loss_ema=new_ema, ema_init=True,
-                      skipped=state.skipped + skip, applied=state.applied + (not skip)), logs
+    with span("train.step"):
+        model.train()
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        for p in params:
+            p.grad = None
+        losses, metrics = model(dict(batch, metrics_tick=state.step % METRICS_PERIOD == 0),
+                                generator)
+        # the logs in float32 (float64 stays)
+        dt = torch.promote_types(next(iter(losses.values())).dtype, torch.float32)
+        total = torch.stack([v.to(dt) for v in losses.values()]).sum()
+        with span("train.backward"):
+            total.backward()
+        grads = [p.grad for p in params if p.grad is not None]
+        sum_gradients(grads)
+        grad_finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        # the skip decision and the logs (each rank's share summed over the
+        # ranks; the summed flag is W where all are finite), read by the host
+        names = [*losses, *metrics]
+        vals = global_sum(torch.stack([total.detach(), grad_finite.to(dt),
+                                         *(v.detach().to(dt) for v in losses.values()),
+                                         *(v.detach().to(dt) for v in metrics.values())]))
+        with span("sync"):
+            vals = vals.tolist()
+        total_v, finite = vals[0], vals[1] == distributed.process_count()
+        ema = state.loss_ema if state.ema_init else total_v
+        diverging = not math.isfinite(total_v) or total_v > EXPLOSION_FACTOR * max(ema, 1e-8)
+        skip = diverging or not finite
+        recorded = min(max(total_v, 0.0), 1.0) if diverging else total_v
+        if not math.isfinite(recorded):
+            recorded = 1.0
+        new_ema = ema * (1 - GAMMA) + GAMMA * recorded if state.ema_init else recorded
+        with span("train.optimizer"):
+            if skip:
+                for m in model.modules():
+                    if isinstance(m, BatchNorm2d):
+                        m.pending = None
+            else:
+                optimizer.step()
+                apply_batch_stats(model)
+        logs = dict(zip(names, vals[2:]))
+        logs.update(total_loss=total_v, diverging=float(diverging), grad_finite=float(finite))
+        return TrainState(step=state.step + 1, loss_ema=new_ema, ema_init=True,
+                          skipped=state.skipped + skip, applied=state.applied + (not skip)), logs
