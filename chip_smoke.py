@@ -183,8 +183,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (K2's and the analytic depth's) against the scenes' true ground; uniform_topk_mask on the card's generator (its
      count, validity and seed); card vs CPU within 1e-5 of scale, equal
      flags and masks; each function's median ms of 5 calls;
- 14. print the kernels line (K1, K1-bwd, K2; their launches on every path
-     above) and, last, {"ok": true, "device": {...}}.
+ 32. (after 3b-3c) the NMS kernel (csrc/nms.cu) at the cells' shapes: the
+     RPN's 125 x 2000 (b25 x 5 levels, p5 / p6 padded) and 40 x 1000, and
+     the box NMS's 8 x 1024 with 38 classes through batched_nms_mask,
+     boxes drawn as near-duplicates with bf16-tied scores
+     (tests/torch_nms_boxes.py): the keep mask held bit for bit to the plain
+     fixed point on the same CUDA tensors; the kernel's device time per
+     launch and the whole nms_mask call's (rank sort + kernel), beside the
+     byte bound, the plain version (its passes and syncs included) and, where
+     torchvision is installed, torchvision.ops.batched_nms as a yardstick;
+ 14. print the kernels line (K1, K1-bwd, K2, NMS; their launches on every path
+     above, NMS's on phase 4's detection forwards and phase 12's training
+     steps, each counted from 0 before it) and, last,
+     {"ok": true, "device": {...}}.
 
 The CLI phases before 24 run one process (TPU.MESH_SHAPE [1]), so that the
 script does the same on a machine with several cards.
@@ -218,6 +229,8 @@ K1_SOURCE = "weakcube_tpu_torch/csrc/roi_align.cu"
 K1_BWD_REPLACES = "weakcube_tpu/ops/roi_align.py:403"
 K2_REPLACES = "weakcube_tpu/data/pseudo_gt/depth_anything_v2.py:37"
 K2_SOURCE = "weakcube_tpu_torch/csrc/flash_attention.cu"
+NMS_REPLACES = "weakcube_tpu/ops/nms.py:21 (an XLA while_loop, no Pallas kernel)"
+NMS_SOURCE = "weakcube_tpu_torch/csrc/nms.cu"
 DEPTH_BATCH, DEPTH_SIZE, DEPTH_IMAGES = 16, 518, 32
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_GT, TRAIN_STEPS = 25, 512, 16, 5
 
@@ -1095,13 +1108,15 @@ def train_phases(dev):
     weak training step (configs/Omni_combined.yaml, 38 classes, 512 px,
     batch 25, bf16) through create_train_state + train_step; K1 and K1-bwd
     held to their plain versions on the step's own pooler inputs, and K1-bwd
-    timed on them. Returns K1-bwd's entry of the kernels line and K1's
-    largest error on the step's inputs."""
+    timed on them. Returns K1-bwd's entry of the kernels line, K1's
+    largest error on the step's inputs and the NMS kernel's launches in the
+    full-width steps (one per step: the RPN's proposal selection)."""
     import numpy as np
     import torch
     from weakcube_tpu_torch.entry import dims_priors, flagship_cfg, tiny_batch
     from weakcube_tpu_torch.models.rcnn3d import build_model
     from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
+    from weakcube_tpu_torch.ops import nms as nms_ops
     from weakcube_tpu_torch.ops import roi_align_cuda
     from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
     from weakcube_tpu_torch.tools.bench_k1_bwd import kernels_of
@@ -1136,7 +1151,7 @@ def train_phases(dev):
           f"rows, built in {time.time() - t:.1f} s")
     n_steps = 1 + TRAIN_STEPS  # one warm-up + the timed steps
     torch.cuda.reset_peak_memory_stats()
-    K1.launches = bwd.launches = 0
+    K1.launches = bwd.launches = nms_ops.nms_mask.launches = 0
     times, all_logs = [], []
     for _ in range(n_steps):
         torch.cuda.synchronize()
@@ -1146,6 +1161,7 @@ def train_phases(dev):
         times.append((time.perf_counter() - t) * 1e3)
         all_logs.append(logs)
     k1_launches, bwd_launches = K1.launches, bwd.launches
+    nms_launches = nms_ops.nms_mask.launches
     # Cube/IoU3D is computed on step 0 and reads NaN on the other steps
     bad = [(i, k) for i, l in enumerate(all_logs) for k, v in l.items()
            if not np.isfinite(v) and (i == 0 or k != "Cube/IoU3D")]
@@ -1157,10 +1173,14 @@ def train_phases(dev):
     if k1_launches != 2 * n_steps or bwd_launches != 2 * n_steps:
         fail(f"K1 launched {k1_launches} and K1-bwd {bwd_launches} times in {n_steps} steps, "
              "expected 2 each per step (box and cube pooler)")
+    if nms_launches != n_steps:
+        fail(f"the NMS kernel launched {nms_launches} times in {n_steps} steps, expected 1 per "
+             "step (the RPN's proposal selection)")
     ms = statistics.median(times[1:])
     print(f"[train] {n_steps} steps: applied {state.applied}, skipped {state.skipped}; every "
           f"loss finite; K1 launches {k1_launches}, K1-bwd launches {bwd_launches} (2 + 2 per "
-          f"step); peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+          f"step), NMS launches {nms_launches} (1 per step); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     print(f"[train] Cube/IoU3D of step 0 (a metric tick; NaN on the others): "
           f"{all_logs[0]['Cube/IoU3D']:.6f}")
     print(f"[train] losses of the last step: " + ", ".join(
@@ -1234,7 +1254,7 @@ def train_phases(dev):
             "route": "cuda", "source": K1_SOURCE, "replaces": K1_BWD_REPLACES,
             "launches": bwd_launches, "max_abs_err": errs["K1-bwd"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": bound_by,
-            "library_ms": tot["library_ms"]}, errs["K1"]
+            "library_ms": tot["library_ms"]}, errs["K1"], nms_launches
 
 
 def profile_step(step, top: int = 14):
@@ -3092,6 +3112,69 @@ def dp_cli_phase(dev) -> dict:
     return rep
 
 
+def nms_phase(dev) -> dict:
+    """Phase 32: the NMS kernel at the cells' shapes against the plain fixed
+    point (bit for bit), timed beside its byte bound, the plain version and
+    torchvision's batched_nms where installed. Returns the kernels-line
+    entry (ms per shape)."""
+    import torch
+    import torch_nms_boxes as nms_boxes
+    from weakcube_tpu_torch.ops import nms as nms_ops
+    try:
+        from torchvision.ops import batched_nms
+    except ImportError:
+        batched_nms = None
+    for line in nms_ops.build_log.splitlines():
+        if any(w in line for w in ("registers", "spill", "smem")):
+            print(f"  ptxas: {line.strip()}")
+    # design targets for the RPN calls, set by the greedy chain's latency
+    targets = {"rpn_train": 0.5, "rpn_detect": 0.15, "box_detect": None}
+    entry = {"name": "nms_mask (greedy NMS, one block per problem)", "route": "cuda",
+             "source": NMS_SOURCE, "replaces": NMS_REPLACES, "bound_by": "bytes",
+             "paced_by": "the greedy chain's latency: ceil(n / 64) chunk steps of two block "
+                         "barriers each (csrc/nms.cu's note); not bounded here", "shapes": {}}
+    for shape, target in targets.items():
+        call = nms_boxes.cell_call(shape, seed=32)
+        on = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in call.items()}
+        got = nms_boxes.run(on, dev)
+        want = nms_boxes.run(on, dev, nms_ops.nms_mask_plain)
+        if not torch.equal(got, want):
+            fail(f"NMS kernel differs from the plain fixed point at {shape}: "
+                 f"{int((got != want).sum())} of {got.numel()} flags")
+        boxes = on["boxes"] if on["classes"] is None else nms_boxes.class_offset_boxes(on)
+        n = boxes.shape[-2]
+        boxes = boxes.reshape(-1, n, 4).contiguous()
+        M = boxes.shape[0]
+        valid = on["valid"].reshape(M, n).contiguous()
+        order = nms_ops._rank_order(on["scores"].reshape(M, n), valid).contiguous()
+        keep = torch.empty_like(valid)
+        ms = kernel_device_ms(lambda: nms_ops.launch(boxes, order, valid, keep, on["thr"]), 20)
+        if not torch.equal(keep, got.reshape(M, n)):
+            fail(f"the NMS kernel launched alone differs from nms_mask at {shape}")
+        call_ms = kernel_device_ms(lambda: nms_boxes.run(on, dev), 20)
+        plain_ms = timed_ms(lambda: nms_boxes.run(on, dev, nms_ops.nms_mask_plain), 3, 1)
+        # the bytes nms_mask needs: each box, score and valid flag read once,
+        # the mask written once (the rank order is the wrapper's own)
+        bound = M * n * (16 + on["scores"].element_size() + 1 + 1) / PEAK_BYTES_PER_S * 1e3
+        lib_ms = None
+        if batched_nms is not None:
+            fv = valid.reshape(-1)
+            fb, fs = boxes.reshape(-1, 4)[fv], on["scores"].reshape(-1).float()[fv]
+            ids = torch.arange(M, device=dev).repeat_interleave(n)[fv]
+            lib_ms = timed_ms(lambda: batched_nms(fb, fs, ids, on["thr"]), 10)
+        kept = int(got.sum())
+        print(f"[nms] {shape}: {M} x {n}, {kept} of {int(valid.sum())} valid boxes kept; "
+              f"kernel {ms:.4f} ms device per launch (target {target} ms), the nms_mask call "
+              f"(rank sort + kernel) {call_ms:.4f}, byte bound {bound:.4f} ms "
+              f"({100 * bound / ms:.2f}%; the greedy chain's {-(-n // 64)} chunk steps pace "
+              f"it), plain {plain_ms:.3f} ms (its syncs included), "
+              f"torchvision.ops.batched_nms "
+              f"{'not installed' if lib_ms is None else f'{lib_ms:.3f} ms'}; equal bit for bit")
+        entry["shapes"][shape] = {"M": M, "n": n, "kept": kept, "ms": ms, "call_ms": call_ms,
+                                  "bound_ms": bound, "plain_ms": plain_ms, "library_ms": lib_ms}
+    return entry
+
+
 def main() -> None:
     try:
         import torch
@@ -3108,6 +3191,7 @@ def main() -> None:
         from weakcube_tpu_torch.evaluation import _native as eval_native
         from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
         from weakcube_tpu_torch.ops import flash_attention_cuda, roi_align_cuda
+        from weakcube_tpu_torch.ops import nms as nms_ops
         from weakcube_tpu_torch.ops.cuda_build import build_host_library
     except ImportError as e:
         fail(f"the weakcube_tpu_torch package is not beside this script: {e}")
@@ -3130,9 +3214,10 @@ def main() -> None:
     # -- 2. build K1 and K2, one nvcc each, and the evaluator's matcher (g++),
     # in parallel, so that no later phase's time holds a compile -------------
     t = time.time()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [(name, mod, pool.submit(mod.build))
-                  for name, mod in (("K1", roi_align_cuda), ("K2", flash_attention_cuda))]
+                  for name, mod in (("K1", roi_align_cuda), ("K2", flash_attention_cuda),
+                                    ("NMS", nms_ops))]
         matcher = pool.submit(build_host_library, eval_native.SOURCE)
         for name, mod, fut in builds:
             lib_path = fut.result()
@@ -3179,6 +3264,9 @@ def main() -> None:
     t = time.time()
     racecheck = k1_racecheck()
     print(f"[phase] 3b-3c (K1 stress, racecheck: {racecheck}) took {time.time() - t:.1f} s")
+    t = time.time()
+    nms_entry = nms_phase(dev)
+    print(f"[phase] 32 (NMS kernel at the cells' shapes) took {time.time() - t:.1f} s")
 
     # -- 4. the flagship forward, full width ------------------------------
     cfg = flagship_cfg(512)
@@ -3193,7 +3281,7 @@ def main() -> None:
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
           f"built in {time.time() - t:.1f} s")
     n_fwd = 4  # one warm-up + 3 timed
-    K1.launches = flash_attention_cuda.flash_attention.launches = 0
+    K1.launches = flash_attention_cuda.flash_attention.launches = nms_ops.nms_mask.launches = 0
     times = []
     with torch.inference_mode():
         for i in range(n_fwd):
@@ -3202,7 +3290,7 @@ def main() -> None:
             det = model(batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-    launches = K1.launches
+    launches, nms_fwd_launches = K1.launches, nms_ops.nms_mask.launches
 
     # -- 5. outputs -------------------------------------------------------
     D = cfg.TEST.DETECTIONS_PER_IMAGE
@@ -3219,7 +3307,11 @@ def main() -> None:
         fail("no valid detections")
     if launches != 2 * n_fwd:
         fail(f"K1 launched {launches} times in {n_fwd} forwards, expected {2 * n_fwd}")
-    print(f"[forward] {n_fwd} forwards: K1 launches {launches} (2 per forward), "
+    if nms_fwd_launches != 2 * n_fwd:
+        fail(f"the NMS kernel launched {nms_fwd_launches} times in {n_fwd} forwards, expected "
+             f"{2 * n_fwd} (the RPN's and the box NMS)")
+    print(f"[forward] {n_fwd} forwards: K1 launches {launches} (2 per forward), NMS launches "
+          f"{nms_fwd_launches} (2 per forward), "
           f"{n_valid} valid detections in the last")
 
     # the forward's own pooler inputs: pyramid, proposals, detections
@@ -3351,7 +3443,7 @@ def main() -> None:
 
     # -- 11.-13. the training step ---------------------------------------------
     t = time.time()
-    k1_bwd, max_err["train"] = train_phases(dev)
+    k1_bwd, max_err["train"], nms_step_launches = train_phases(dev)
     print(f"[phase] 11-13 (training step) took {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
 
@@ -3453,7 +3545,10 @@ def main() -> None:
              max_abs_err=max(k1_bwd["max_abs_err"], dp["errs"]["K1-bwd"],
                              *(r["errs"]["K1-bwd"] for r in heads.values()),
                              *(r["train"]["errs"]["K1-bwd"] for k, r in sweep.items()
-                               if k != "adam_card_vs_cpu"))), k2]}))
+                               if k != "adam_card_vs_cpu"))), k2,
+        dict(nms_entry, launches=nms_fwd_launches + nms_step_launches, launches_by_path={
+            "detection forward (4 x b8)": nms_fwd_launches,
+            f"training step ({1 + TRAIN_STEPS} x b{TRAIN_BATCH})": nms_step_launches})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,10 +9,12 @@ import pytest
 import torch
 
 from weakcube_tpu_torch.ops import flash_attention_cuda
+from weakcube_tpu_torch.ops import nms as nms_ops
 from weakcube_tpu_torch.ops import roi_align as t_ra
 from weakcube_tpu_torch.ops import roi_align_cuda
 from weakcube_tpu_torch.ops.attention import attention
 from torch_roi_boxes import BOX_SETS, border_boxes, box_set, edge_boxes, elongated_boxes
+import torch_nms_boxes as nms_boxes
 
 STRIDES = (4, 8, 16, 32, 64)
 pytestmark = pytest.mark.cuda
@@ -275,7 +277,9 @@ def test_every_sync_lies_in_a_sync_span(card):
     """Under CUDA's sync debug mode, each sync that a small training step
     and a detection forward make on the card falls inside a `sync` span of
     utils/trace.py, one sync to a span: what the benchmark's host_ms_* and
-    host_syncs_* readers take from the spans is what CUDA reports."""
+    host_syncs_* readers take from the spans is what CUDA reports. The step
+    syncs twice (the logs, the corner constant) and the forward not at
+    all."""
     import time
     import warnings
     from weakcube_tpu_torch.entry import dims_priors, make_batch, tiny_batch, tiny_cfg
@@ -308,9 +312,128 @@ def test_every_sync_lies_in_a_sync_span(card):
     syncs = [s for s in spans if s.name == "sync"]
     inside = [t for t, msg in seen if "synchroniz" in msg
               and any(r.start_ns <= t <= r.end_ns for r in roots)]
-    assert len(inside) == len(syncs) >= 5
+    assert len(inside) == len(syncs) == 2
     for t in inside:
         assert sum(s.start_ns <= t <= s.end_ns for s in syncs) == 1
+    # the two sites, by root and parent span: the step's logs (train.step
+    # itself) and the weak heads' corner constant (model.roi_heads). NMS
+    # runs its kernel on the card, so neither the step's proposal selection
+    # nor the detection forward (root model.forward) waits on the device
+    ids = {s.id: s for s in spans}
+    assert sorted((ids[s.root].name, ids[s.parent].name) for s in syncs) == [
+        ("train.step", "model.roi_heads"), ("train.step", "train.step")]
+    assert sum(s.name == "nms" for s in spans) == 3  # the step's RPN; the forward's RPN, boxes
+
+
+def check_nms_call(call, card) -> torch.Tensor:
+    """One NMS call on the card through the kernel (one launch), held bit
+    for bit to the plain fixed point on the same CUDA tensors and on the
+    CPU. Returns the kernel's mask on the CPU."""
+    before = nms_ops.nms_mask.launches
+    got = nms_boxes.run(call, card)
+    torch.cuda.synchronize()
+    n_problems = int(np.prod(call["boxes"].shape[:-2]))
+    assert nms_ops.nms_mask.launches == before + (n_problems * call["boxes"].shape[-2] > 0)
+    got = got.cpu()
+    assert got.dtype == torch.bool and got.shape == call["boxes"].shape[:-1]
+    assert torch.equal(got, nms_boxes.run(call, card, nms_ops.nms_mask_plain).cpu())
+    assert torch.equal(got, nms_boxes.run(call, "cpu"))
+    return got
+
+
+@pytest.mark.parametrize("shape", ["rpn_train", "rpn_detect", "box_detect"])
+def test_nms_kernel_matches_plain_at_the_cells_shapes(card, shape):
+    """The cells' NMS calls (125 x 2000 with p5 / p6 padded, 40 x 1000, and
+    8 x 1024 through batched_nms_mask with 38 classes), boxes drawn as
+    near-duplicates around a few centres with bf16-tied scores: the
+    kernel's keep mask equals the plain fixed point's, bit for bit."""
+    call = nms_boxes.cell_call(shape, seed=11)
+    got = check_nms_call(call, card)
+    valid = call["valid"]
+    assert 0 < int(got.sum()) < int(valid.sum())  # some kept, some suppressed
+    assert not (got & ~valid).any()
+
+
+@pytest.mark.parametrize("case", sorted(nms_boxes.ADVERSARIAL))
+def test_nms_kernel_matches_plain_on_adversarial_sets(card, case):
+    """Chains across the kernel's 64-box chunks, ties the stable order
+    decides, padding, class offsets, NaN boxes, an IoU equal to the
+    threshold, an FMA-sensitive union, every box invalid, n in
+    {0, 1, 63, 64, 65}."""
+    for call in nms_boxes.adversarial(case):
+        check_nms_call(call, card)
+
+
+@pytest.mark.parametrize("case", ["chain2000", "n2000", "n8192"])
+def test_nms_kernel_matches_plain_at_depth_and_size(card, case):
+    """A suppression chain of depth 2000 (the fixed point takes 2000 passes;
+    one problem runs it backwards), and n = 2000 and 8192 near-duplicates."""
+    rng = np.random.default_rng(12)
+    if case == "chain2000":
+        s = np.linspace(1.0, 0.1, 2000, dtype=np.float32)
+        call = nms_boxes.nms_call(np.stack([nms_boxes.chain(2000)] * 2),
+                                  np.stack([s, s[::-1]]), 0.3)
+    else:
+        n = int(case[1:])
+        call = nms_boxes.nms_call(nms_boxes.near_duplicates(rng, (2, n), 1024.0),
+                                  nms_boxes.bf16_scores(rng, (2, n)), 0.7)
+    got = check_nms_call(call, card)
+    if case == "chain2000":
+        assert got[0].tolist() == [i % 2 == 0 for i in range(2000)]
+        assert got[1].tolist() == [i % 2 == 1 for i in range(2000)]
+
+
+def test_nms_kernel_refuses_what_it_does_not_take(card):
+    boxes = torch.zeros((2, 5, 4), device=card)
+    scores = torch.zeros((2, 5), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        nms_ops.nms_mask(boxes.double(), scores, 0.5)
+    with pytest.raises(ValueError, match="at most"):
+        n = nms_ops.MAX_N + 1
+        nms_ops.nms_mask(torch.zeros((1, n, 4), device=card), torch.zeros((1, n), device=card),
+                         0.5)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        nms_ops.nms_mask(boxes, scores.cpu(), 0.5)
+
+
+def test_nms_on_card_records_no_sync(card):
+    """On the card an nms_mask call is one `nms` span with nothing inside:
+    no convergence check waits on the device."""
+    from weakcube_tpu_torch.utils import trace
+    call = {k: (v.to(card) if isinstance(v, torch.Tensor) else v)
+            for k, v in nms_boxes.cell_call("rpn_detect", seed=13).items()}
+    torch.cuda.synchronize()
+    trace.take()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            nms_boxes.run(call, card)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    spans = trace.take()
+    assert [s.name for s in spans] == ["nms"]
+
+
+def test_detection_forward_nms_kernel_matches_plain(card, monkeypatch):
+    """A b8 detection forward of the full-width model (512 px) with the
+    kernel gives the same detections as the same forward with nms_mask
+    patched to the plain fixed point on the same CUDA tensors."""
+    from weakcube_tpu_torch.entry import dims_priors, flagship_cfg, make_batch
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    cfg = flagship_cfg(512)
+    model = build_model(cfg, dims_priors(cfg.MODEL.ROI_HEADS.NUM_CLASSES), device=card, seed=1)
+    images = make_batch(8, 512, 512, seed=4, device=card)
+    before = nms_ops.nms_mask.launches
+    with torch.inference_mode():
+        got = model.eval()(images)
+        torch.cuda.synchronize()
+        assert nms_ops.nms_mask.launches == before + 2  # the RPN's and the box NMS
+        monkeypatch.setattr(nms_ops, "nms_mask", nms_ops.nms_mask_plain)
+        want = model(images)
+    assert int(got.valid.sum()) > 0
+    for name in ("valid", "classes", "boxes", "scores", "scores3D", "centers3D"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 def match(a, b, i):

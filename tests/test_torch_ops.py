@@ -5,6 +5,7 @@ a test says otherwise the tolerance is float32 round-off: atol 1e-5 on
 O(1)-O(100) values, where the two frameworks evaluate the same expressions
 with their own (equally rounded) elementwise kernels.
 """
+import functools
 import glob
 import os
 
@@ -29,6 +30,7 @@ from weakcube_tpu_torch.ops import nms as t_nms
 from weakcube_tpu_torch.ops import pool as t_pool
 from weakcube_tpu_torch.ops import rotations as t_rot
 from weakcube_tpu_torch.ops import sampling as t_sampling
+import torch_nms_boxes as nms_boxes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(REPO, "configs", "*.yaml")))
@@ -185,6 +187,87 @@ class TestNMS:
                                     jnp.asarray(keep), 4)
         for t, j in zip(out, jout):
             close(t, j, atol=0)
+
+    @pytest.mark.parametrize("case", sorted(nms_boxes.ADVERSARIAL))
+    def test_plain_is_sequential_greedy(self, case):
+        """The fixed point (nms_mask on the CPU) equals textbook sequential
+        greedy NMS, problem by problem, on the adversarial sets the CUDA
+        kernel is held to on the card: chains, ties, padding, class offsets,
+        NaN boxes, an IoU equal to the threshold, an FMA-sensitive union.
+        The JAX package's nms_mask (batched_nms_mask where there are
+        classes) gives the same mask on each problem."""
+        for call, want in zip(nms_boxes.adversarial(case), jax_adversarial_masks()[case]):
+            got = nms_boxes.run(call, "cpu")
+            assert got.tolist() == want.tolist()
+            boxes = call["boxes"]
+            if call["classes"] is not None:  # classes apart: no IoU across them
+                boxes = nms_boxes.class_offset_boxes(call)
+                iou = t_boxes.pairwise_iou(boxes, boxes)
+                other = call["classes"][..., :, None] != call["classes"][..., None, :]
+                assert not iou[other].any()
+            if case == "nan":  # what csrc/nms.cu assumes: such a box has IoU 0 with all
+                bad = ~torch.isfinite(boxes).all(-1)
+                iou = t_boxes.pairwise_iou(boxes, boxes)
+                iou = iou.nan_to_num(1.0)
+                assert bad.any() and not iou[bad].any() and not iou.transpose(-1, -2)[bad].any()
+            m, n = int(np.prod(got.shape[:-1])), got.shape[-1]
+            valid = call["valid"]
+            valid = torch.ones(got.shape, dtype=torch.bool) if valid is None else valid
+            for b, s, v, k in zip(boxes.reshape(m, n, 4), call["scores"].reshape(m, n),
+                                  valid.reshape(m, n), got.reshape(m, n)):
+                assert k.tolist() == nms_boxes.greedy_nms(b, s, call["thr"], v).tolist()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_adversarial_masks() -> dict:
+    """The JAX package's nms_mask (batched_nms_mask where a call has
+    classes) on every problem of every adversarial call
+    (tests/torch_nms_boxes.py), as {set: [mask of each call]}. Run op by op,
+    since under jit XLA's CPU backend contracts the union's w * h + area_b
+    into one fused multiply-add, which PyTorch's rounding and csrc/nms.cu's
+    do not; vmapped over one padded shape per function, so that its ops
+    compile once: each problem gains invalid copies of its first box (they
+    suppress nothing and move no class offset) up to 128 boxes."""
+    pn = 128
+    problems = {False: [], True: []}  # by whether the call has classes
+    calls = {name: nms_boxes.adversarial(name) for name in nms_boxes.ADVERSARIAL}
+    for name, cs in calls.items():
+        for c in cs:
+            lead, n = c["scores"].shape[:-1], c["scores"].shape[-1]
+            m = int(np.prod(lead))
+            if n == 0:
+                continue
+            assert n <= pn
+            take = np.where(np.arange(pn) < n, np.arange(pn), 0)
+            flat = lambda x: x.reshape((m, n) + x.shape[len(lead) + 1:]).numpy()[:, take]
+            valid = c["valid"] if c["valid"] is not None else torch.ones(lead + (n,), dtype=bool)
+            v = flat(valid)
+            v[:, n:] = False
+            cls = None if c["classes"] is None else flat(c["classes"])
+            for i in range(m):
+                problems[cls is not None].append(
+                    (flat(c["boxes"])[i], flat(c["scores"].float())[i], v[i], np.float32(c["thr"]),
+                     None if cls is None else cls[i]))
+    fns = {False: lambda b, s, v, t: j_nms.nms_mask(b, s, t, v),
+           True: lambda b, s, v, t, c: j_nms.batched_nms_mask(b, s, c, t, v)}
+    # both batches padded to one count of problems (repeats of their first),
+    # so that batched_nms_mask's nms_mask reuses the other call's compiles
+    size = max(len(ps) for ps in problems.values())
+    out = {}
+    for has, ps in problems.items():
+        ps = ps + [ps[0]] * (size - len(ps))
+        args = [jnp.asarray(np.stack(x)) for x in zip(*ps) if x[0] is not None]
+        out[has] = iter(np.asarray(jax.vmap(fns[has])(*args)))
+    masks = {}
+    for name, cs in calls.items():
+        masks[name] = []
+        for c in cs:
+            lead, n = c["scores"].shape[:-1], c["scores"].shape[-1]
+            rows = [next(out[c["classes"] is not None])[:n]
+                    for _ in range(int(np.prod(lead)) if n else 0)]
+            masks[name].append(np.stack(rows).reshape(lead + (n,)) if n
+                               else np.zeros(lead + (0,), bool))
+    return masks
 
 
 # ------------------------------------------------------------- rotations

@@ -11,7 +11,7 @@ the global batch in a data-parallel run).
 Proposal selection is detectron2's find_top_rpn_proposals with static
 shapes: per level, exact top-k by objectness -> decode -> clip -> NMS within
 the level; then a global post-NMS top-k into a fixed-size `Proposals`. The
-levels of every image run as one padded NMS problem (ops/nms.py).
+(image, level) problems run as one padded batch in one NMS call (ops/nms.py).
 """
 from __future__ import annotations
 

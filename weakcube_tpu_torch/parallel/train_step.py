@@ -30,11 +30,12 @@ all-reduce before the host reads them, so every rank takes the same skip
 decision, applies (or drops) the same global BatchNorm statistics and logs
 the same global values: those of one process on the global batch.
 
-That read is one of the step's host syncs, not its only one: proposal
-selection's NMS reads its fixed point's convergence once per pass and once
-more (ops/nms.py), and on a card the weak heads' corner constant is copied
-from pageable host memory (ops/cuboids.py), so a step syncs k + 3 times for
-an NMS of k passes (benchmark/sync_audit.py lists them on the card).
+That read is one of the step's host syncs, not its only one: on a card the
+weak heads' corner constant is copied from pageable host memory
+(ops/cuboids.py), so a weak step syncs twice there (benchmark/sync_audit.py
+lists them). NMS syncs only on the CPU, where proposal selection's fixed
+point reads its convergence once per pass and once more (ops/nms.py); on a
+card it is one kernel launch.
 
 Under a torch.profiler session the step records the spans of utils/trace.py:
 train.step around it, train.backward, train.grad_sum (W > 1),

@@ -29,8 +29,11 @@ The port's spans (fixed names; readers look them up by name):
                    training)
   model.roi_heads  the ROI heads (inference, or their training losses)
   nms              one ops/nms.py::nms_mask call
-  sync             the host blocked on the device for a value: each pass's
-                   convergence check in nms_mask, the step's logs
+  sync             the host blocked on the device for a value: the step's
+                   logs, the weak heads' corner constant copied from pageable
+                   memory on a card, and each pass's convergence check in
+                   nms_mask on the CPU (on a card NMS is one kernel launch,
+                   and its span holds no sync)
 """
 from __future__ import annotations
 
