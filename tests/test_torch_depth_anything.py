@@ -289,3 +289,86 @@ def test_depth_entry_points_want_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_gen.load_model(None, VARIANT, input_size=28)
+
+
+# --------------------------------------------------------------------------
+# the port against the benchmark's plain float32 reference
+# (benchmark/reference/depth_anything_v2.py), ViT-S at 56 px (N = 17), on one
+# draw of the benchmark's depth weights (benchmark/harness/depth_weights.py)
+
+def _bench_module(rel):
+    import importlib.util
+    path = os.path.join(os.path.dirname(__file__), "..", "benchmark", rel)
+    spec = importlib.util.spec_from_file_location("bench_" + rel.replace("/", "_")[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+REF_SIZE = 56
+
+
+@pytest.fixture(scope="module")
+def ref_pair():
+    ref_mod = _bench_module("reference/depth_anything_v2.py")
+    weights = _bench_module("harness/depth_weights.py")
+    ref = ref_mod.DepthAnythingV2(VARIANT, 20.0, REF_SIZE // 14)
+    sd = weights.make_state_dict(ref, 20260319, "cpu")
+    ref.load_state_dict(sd)
+    port = t_gen.load_model(sd, VARIANT, 20.0, REF_SIZE, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    images = [rng.integers(0, 256, (30 + 7 * i, 44 - 5 * i, 3), dtype=np.uint8) for i in range(3)]
+    return dict(ref_mod=ref_mod, ref=ref, port=port, images=images)
+
+
+@pytest.mark.parametrize("part", ["taps", "model", "depth_maps"])
+def test_port_matches_plain_reference(ref_pair, part):
+    """float32 on both sides, so only the order of float32 sums differs:
+    the four encoder taps (LayerNorm'ed, values ~1) and the model's depth
+    within 1e-4; depth_maps' float16 host maps against the reference's own
+    preprocessing, forward and resize out within 1.6e-2 m, one float16 step
+    at 16-20 m (a float32 difference of ~1e-5 can round to either side of
+    one). The maps must not be flat."""
+    ref_mod, ref, port = ref_pair["ref_mod"], ref_pair["ref"], ref_pair["port"]
+    images = ref_pair["images"]
+    x = torch.cat([ref_mod.preprocess(torch.from_numpy(im), REF_SIZE) for im in images])
+    with torch.no_grad():
+        if part == "taps":
+            want = ref.encoder(x)
+            got = port.pretrained(x)
+            assert len(got) == len(want) == 4
+            for i, (a, b) in enumerate(zip(got, want)):
+                close(a, b, atol=1e-4, rtol=1e-4, msg=f"tap {i}")
+        elif part == "model":
+            want = ref(x)
+            assert float(want.std()) > 0.1
+            close(port(x.permute(0, 2, 3, 1)), want, atol=1e-4)
+        else:
+            sizes = [im.shape[:2] for im in images]
+            want = ref_mod.depth_maps(ref, images, sizes, "cpu")
+            got = t_gen.depth_maps(port, images, sizes)
+            for a, b, hw in zip(got, want, sizes):
+                assert a.dtype == b.dtype == torch.float16 and tuple(a.shape) == hw
+                assert a.device.type == "cpu" and float(b.float().std()) > 0.1
+                close(a.float(), b.float(), atol=1.6e-2)
+
+
+def test_depth_maps_spans_in_order(ref_pair):
+    """Under a profiler, one depth_maps call records the root depth.batch
+    holding depth.preprocess, depth.encoder, depth.head and depth.resize_out
+    in that order, each inside the root, all under the root's id."""
+    from weakcube_tpu_torch.utils import trace as port_trace
+    images = ref_pair["images"][:2]
+    port_trace.take()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        t_gen.depth_maps(ref_pair["port"], images, [im.shape[:2] for im in images])
+    spans = port_trace.take()
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["depth.batch"]
+    root = roots[0]
+    kids = sorted((s for s in spans if s.parent == root.id), key=lambda s: s.start_ns)
+    assert [s.name for s in kids] == ["depth.preprocess", "depth.encoder", "depth.head",
+                                      "depth.resize_out"]
+    assert all(s.root == root.id for s in spans)
+    assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in kids)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))

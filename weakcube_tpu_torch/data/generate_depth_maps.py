@@ -2,11 +2,13 @@
 """Generate metric depth-map pseudo-GT artefacts on the GPU
 (weakcube_tpu/data/generate_depth_maps.py).
 
-Depth Anything V2 runs batched over the images: decode, resize and
-normalise each image on the card, one (B, 518, 518, 3) tensor per forward
-at a static batch size, then resize each depth map back to its image's size
-and save datasets/depth_maps/{image_id}.npz (float16 `depth`), the artefact
-the weak recipe's z_pseudo_gt_center loss and the ground planes read.
+Depth Anything V2 runs batched over the images. `depth_maps` is one
+batch's whole path: uint8 images on the host, resized and normalised on the
+card into one (B, 518, 518, 3) tensor, one forward at a static batch size,
+each depth map resized back to its image's size and returned as a float16
+host tensor. `generate` runs it over the records and saves each map as
+datasets/depth_maps/{image_id}.npz (float16 `depth`), the artefact the weak
+recipe's z_pseudo_gt_center loss and the ground planes read.
 
   python -m weakcube_tpu_torch.data.generate_depth_maps --synthetic 32 --out /tmp/depth
   python -m weakcube_tpu_torch.data.generate_depth_maps \\
@@ -20,13 +22,14 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..models.rcnn3d import resolve_device
+from ..utils.trace import span
 from .datasets import read_image
 from .pseudo_gt.depth_anything_v2 import (UNUSED_CHECKPOINT_KEYS, DepthAnythingV2,
                                           init_random_, preprocess_images)
@@ -48,16 +51,25 @@ def depth_of_images(model: DepthAnythingV2, images: torch.Tensor,
     return torch.cat(outs)
 
 
-def load_model(checkpoint: Optional[str], variant: str = "vitl", max_depth: float = 20.0,
-               input_size: int = 518, device=None,
+def load_model(checkpoint: Union[None, str, Mapping[str, torch.Tensor]], variant: str = "vitl",
+               max_depth: float = 20.0, input_size: int = 518, device=None,
                dtype: torch.dtype = torch.bfloat16) -> DepthAnythingV2:
     """DepthAnythingV2 from a released `.pth` state dict, a `.npz` holding
-    the JAX package's parameter tree under "params" (numpy arrays), or, with
-    no checkpoint, random weights from seed 0. On `device` (the card unless
+    the JAX package's parameter tree under "params" (numpy arrays), a state
+    dict already in memory under the released names, or, with no
+    checkpoint, random weights from seed 0. On `device` (the card unless
     "cpu" is given) in `dtype`, in eval mode. The convolution weights are
     kept channels_last, as the activations are (the images come in NHWC), so
-    that no forward copies them into that layout again."""
+    that no forward copies them into that layout again. A state dict in
+    memory is assigned, not copied: where its tensors already have the
+    device and dtype asked for, they become the model's parameters."""
     dev = resolve_device(device)
+    if isinstance(checkpoint, Mapping):
+        with torch.device("meta"):
+            model = DepthAnythingV2(variant, max_depth, input_size)
+        model.load_state_dict({k: v for k, v in checkpoint.items()
+                               if k not in UNUSED_CHECKPOINT_KEYS}, assign=True)
+        return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
     model = DepthAnythingV2(variant, max_depth, input_size)
     if checkpoint and checkpoint.endswith(".npz"):
         from ..utils.convert import dav2_flax_to_torch
@@ -72,6 +84,30 @@ def load_model(checkpoint: Optional[str], variant: str = "vitl", max_depth: floa
     return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
 
 
+def depth_maps(model: DepthAnythingV2, images: Sequence, sizes: Sequence[Tuple[int, int]],
+               batch_size: Optional[int] = None) -> List[torch.Tensor]:
+    """One batch of the pseudo-GT path: (H, W, 3) uint8 RGB images on the
+    host (numpy arrays or tensors, pinned or not) -> each image's metric
+    depth as a float16 host tensor of its (height, width) in `sizes`.
+
+    On the model's device: preprocess_images to the model's input size, the
+    forward under inference_mode (padded to `batch_size` images with copies
+    of the last where given), then each map back to its image's size by
+    antialiased bilinear, as the JAX package's PIL "F"-mode BILINEAR resize,
+    cast to float16 and copied to the host. Its spans (utils/trace.py):
+    depth.batch around the whole, holding depth.preprocess, depth.encoder
+    and depth.head (the model's forward) and depth.resize_out in order."""
+    dev = next(model.parameters()).device
+    with span("depth.batch"), torch.inference_mode():
+        with span("depth.preprocess"):
+            batch = preprocess_images(images, model.input_size, dev)
+        depth = depth_of_images(model, batch, batch_size or len(batch))
+        with span("depth.resize_out"):
+            return [F.interpolate(d[None, None], size=(h, w), mode="bilinear",
+                                  align_corners=False, antialias=True)[0, 0]
+                    .to(torch.float16).cpu() for d, (h, w) in zip(depth, sizes)]
+
+
 def generate(records: Sequence[Dict], out_dir: str, checkpoint: Optional[str] = None,
              variant: str = "vitl", max_depth: float = 20.0, batch_size: int = 48,
              input_size: int = 518, image_loader=None, device=None,
@@ -82,22 +118,15 @@ def generate(records: Sequence[Dict], out_dir: str, checkpoint: Optional[str] = 
     os.makedirs(out_dir, exist_ok=True)
     if model is None:
         model = load_model(checkpoint, variant, max_depth, input_size, device)
-    dev = next(model.parameters()).device
     load = image_loader or (lambda r: read_image(r["file_name"], record=r))
     t0 = time.time()
     n_done = 0
     for s in range(0, len(records), batch_size):
         chunk = records[s:s + batch_size]
-        raw = [load(r) for r in chunk]
-        batch = preprocess_images(raw, model.input_size, dev)
-        depth = depth_of_images(model, batch, batch_size)
-        for r, d in zip(chunk, depth):
-            # back to the image's resolution: antialiased bilinear, as PIL's
-            # "F"-mode BILINEAR resize of the JAX package
-            dd = F.interpolate(d[None, None], size=(r["height"], r["width"]),
-                               mode="bilinear", align_corners=False, antialias=True)[0, 0]
-            np.savez_compressed(os.path.join(out_dir, f"{r['image_id']}.npz"),
-                                depth=dd.to(torch.float16).cpu().numpy())
+        maps = depth_maps(model, [load(r) for r in chunk],
+                          [(r["height"], r["width"]) for r in chunk], batch_size)
+        for r, d in zip(chunk, maps):
+            np.savez_compressed(os.path.join(out_dir, f"{r['image_id']}.npz"), depth=d.numpy())
             n_done += 1
         if s % (10 * batch_size) == 0:
             dt = time.time() - t0

@@ -14,7 +14,9 @@ normalised, depth (B, H, W). Inside, tensors are NCHW. The encoder's
 attention goes through `ops/flash_attention_cuda.py::flash_attention`: the
 CUDA kernel on the card, the plain PyTorch version on the CPU. The model
 runs in the dtype of its parameters (bfloat16 on the card for pseudo-GT
-generation); the metric head's sigmoid runs in float32.
+generation); the metric head's sigmoid runs in float32. The forward marks
+the encoder and the decoder with the spans `depth.encoder` and `depth.head`
+(utils/trace.py).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from ...models.rcnn3d import resolve_device
 from ...ops.flash_attention_cuda import flash_attention
+from ...utils.trace import span
 
 VIT_SPECS = {
     # embed_dim, depth, heads, dpt_features, dpt_out_channels
@@ -222,7 +225,10 @@ class DepthAnythingV2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.pretrained.patch_embed.proj.weight.dtype).permute(0, 3, 1, 2)
-        return self.depth_head(self.pretrained(x), x.shape[2:])
+        with span("depth.encoder"):
+            taps = self.pretrained(x)
+        with span("depth.head"):
+            return self.depth_head(taps, x.shape[2:])
 
 
 def init_random_(model: DepthAnythingV2, seed: int = 0) -> DepthAnythingV2:

@@ -12,7 +12,8 @@ That clock (`time.time_ns()`) is the exported trace's: an event sits at
 halfway through it, and its exit stamps at its end: a span starts at the
 midpoint of the clock read just before and just after the enter, and ends
 just after the exit. Spans nest per thread; the spans of one training step
-or one detection request share the id of their root.
+or one detection request share the id of their root (as do those of
+one depth batch).
 
 `take()` returns the spans recorded since the last call and empties the
 store, which otherwise grows while a profiler is active.
@@ -34,6 +35,14 @@ The port's spans (fixed names; readers look them up by name):
                    memory on a card, and each pass's convergence check in
                    nms_mask on the CPU (on a card NMS is one kernel launch,
                    and its span holds no sync)
+  depth.batch      data/generate_depth_maps.py::depth_maps, one batch of
+                   depth pseudo-GT from host images to host maps (root)
+  depth.preprocess the images' resize and normalisation on the device
+                   (preprocess_images, one image at a time)
+  depth.encoder    Depth Anything V2's DINOv2 encoder (K2 runs inside)
+  depth.head       its DPT decoder
+  depth.resize_out each map back to its image's size, cast to float16 and
+                   copied to the host, one image at a time
 """
 from __future__ import annotations
 
