@@ -57,7 +57,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      classes, bf16, batch 25 of tiny_batch at 512 px with 16 GT rows) through
      create_train_state + train_step: one warm-up and 5 timed steps, every
      loss finite, every update applied, K1 and K1-bwd launched twice per
-     step; one step under the profiler;
+     step, NMS once, and BatchNorm's kernels 4 times per layer with a
+     gradient and twice per layer without (phase 33's count of the step's
+     calls: 152 a step); one step under the profiler;
  13. K1 and K1-bwd held to their plain versions on that step's own
      pyramid, boxes and gradients (box pooler R = 512, cube pooler R = 128
      per image), K1-bwd's second launch bitwise equal to its first, and
@@ -192,9 +194,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      launch and the whole nms_mask call's (rank sort + kernel), beside the
      byte bound, the plain version (its passes and syncs included) and, where
      torchvision is installed, torchvision.ops.batched_nms as a yardstick;
- 14. print the kernels line (K1, K1-bwd, K2, NMS; their launches on every path
+ 33. (after 32) BatchNorm's training kernels (csrc/batch_norm.cu) on the 39
+     BatchNorm calls of the b25 step at 512 px (DLA-34; 37 with a gradient,
+     2 without): y and dx against the plain chain on the same tensors, the
+     kernels' device ms forward and backward beside the least bytes the
+     function needs (x read and y written forward; g and x read and dx
+     written backward) and the bytes of their two-read design, the plain
+     chain's and F.batch_norm's (a yardstick) forward + backward, and the
+     launches a call of each path;
+ 14. print the kernels line (K1, K1-bwd, K2, NMS, BN; their launches on every path
      above, NMS's on phase 4's detection forwards and phase 12's training
-     steps, each counted from 0 before it) and, last,
+     steps, BN's on phase 33 and phase 12's training steps, each counted
+     from 0 before it) and, last,
      {"ok": true, "device": {...}}.
 
 The CLI phases before 24 run one process (TPU.MESH_SHAPE [1]), so that the
@@ -231,6 +242,9 @@ K2_REPLACES = "weakcube_tpu/data/pseudo_gt/depth_anything_v2.py:37"
 K2_SOURCE = "weakcube_tpu_torch/csrc/flash_attention.cu"
 NMS_REPLACES = "weakcube_tpu/ops/nms.py:21 (an XLA while_loop, no Pallas kernel)"
 NMS_SOURCE = "weakcube_tpu_torch/csrc/nms.cu"
+BN_REPLACES = ("none: flax's BatchNorm in weakcube_tpu/models/backbone is XLA; the port's "
+               "plain chain is models/layers.py::BatchNorm2d")
+BN_SOURCE = "weakcube_tpu_torch/csrc/batch_norm.cu"
 DEPTH_BATCH, DEPTH_SIZE, DEPTH_IMAGES = 16, 518, 32
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_GT, TRAIN_STEPS = 25, 512, 16, 5
 
@@ -255,18 +269,19 @@ def timed_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters: int) -> float:
+def kernel_device_ms(fn, iters: int, sleep_cycles: int = 20_000_000) -> float:
     """Device ms per call of fn, the host's enqueue hidden: a sleep kernel
-    holds the stream while the host queues `iters` calls, so the CUDA events
-    around them time the device alone. (Events around back-to-back calls
-    time the host when a kernel is shorter than its Python wrapper's
-    enqueue.) Fails if the queueing outlasted the sleep."""
+    of `sleep_cycles` (the default ~10 ms at the H100's clocks) holds the
+    stream while the host queues `iters` calls, so the CUDA events around
+    them time the device alone. (Events around back-to-back calls time the
+    host when a kernel is shorter than its Python wrapper's enqueue.) Fails
+    if the queueing outlasted the sleep."""
     import torch
     fn()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     torch.cuda.synchronize()
     ev[0].record()
-    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
+    torch.cuda._sleep(sleep_cycles)
     ev[1].record()
     t = time.perf_counter()
     for _ in range(iters):
@@ -1103,19 +1118,22 @@ def check_pooler_calls(fwd_calls, bwd_calls, label: str = "") -> dict:
     return errs
 
 
-def train_phases(dev):
+def train_phases(dev, bn_per_step: int):
     """Phases 11-13: the small training step card vs CPU; the full-width
     weak training step (configs/Omni_combined.yaml, 38 classes, 512 px,
     batch 25, bf16) through create_train_state + train_step; K1 and K1-bwd
     held to their plain versions on the step's own pooler inputs, and K1-bwd
-    timed on them. Returns K1-bwd's entry of the kernels line, K1's
-    largest error on the step's inputs and the NMS kernel's launches in the
-    full-width steps (one per step: the RPN's proposal selection)."""
+    timed on them. `bn_per_step` is the BatchNorm kernels' launches a step
+    should make (phase 33's count of its calls). Returns K1-bwd's entry of
+    the kernels line, K1's largest error on the step's inputs, the NMS
+    kernel's launches in the full-width steps (one per step: the RPN's
+    proposal selection) and the BatchNorm kernels' there."""
     import numpy as np
     import torch
     from weakcube_tpu_torch.entry import dims_priors, flagship_cfg, tiny_batch
     from weakcube_tpu_torch.models.rcnn3d import build_model
     from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
+    from weakcube_tpu_torch.ops import batch_norm_cuda as bnc
     from weakcube_tpu_torch.ops import nms as nms_ops
     from weakcube_tpu_torch.ops import roi_align_cuda
     from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
@@ -1152,6 +1170,7 @@ def train_phases(dev):
     n_steps = 1 + TRAIN_STEPS  # one warm-up + the timed steps
     torch.cuda.reset_peak_memory_stats()
     K1.launches = bwd.launches = nms_ops.nms_mask.launches = 0
+    bnc.batch_norm_train.launches = bnc.batch_norm_train_backward.launches = 0
     times, all_logs = [], []
     for _ in range(n_steps):
         torch.cuda.synchronize()
@@ -1162,6 +1181,7 @@ def train_phases(dev):
         all_logs.append(logs)
     k1_launches, bwd_launches = K1.launches, bwd.launches
     nms_launches = nms_ops.nms_mask.launches
+    bn_launches = bnc.batch_norm_train.launches + bnc.batch_norm_train_backward.launches
     # Cube/IoU3D is computed on step 0 and reads NaN on the other steps
     bad = [(i, k) for i, l in enumerate(all_logs) for k, v in l.items()
            if not np.isfinite(v) and (i == 0 or k != "Cube/IoU3D")]
@@ -1176,10 +1196,16 @@ def train_phases(dev):
     if nms_launches != n_steps:
         fail(f"the NMS kernel launched {nms_launches} times in {n_steps} steps, expected 1 per "
              "step (the RPN's proposal selection)")
+    if bn_launches != bn_per_step * n_steps:
+        fail(f"BatchNorm's kernels launched {bn_launches} times in {n_steps} steps "
+             f"({bnc.batch_norm_train.launches} forward, "
+             f"{bnc.batch_norm_train_backward.launches} backward), expected {bn_per_step} per "
+             "step (4 a layer with a gradient, 2 without)")
     ms = statistics.median(times[1:])
     print(f"[train] {n_steps} steps: applied {state.applied}, skipped {state.skipped}; every "
           f"loss finite; K1 launches {k1_launches}, K1-bwd launches {bwd_launches} (2 + 2 per "
-          f"step), NMS launches {nms_launches} (1 per step); peak memory "
+          f"step), NMS launches {nms_launches} (1 per step), BatchNorm kernel launches "
+          f"{bn_launches} ({bn_per_step} per step); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     print(f"[train] Cube/IoU3D of step 0 (a metric tick; NaN on the others): "
           f"{all_logs[0]['Cube/IoU3D']:.6f}")
@@ -1254,7 +1280,7 @@ def train_phases(dev):
             "route": "cuda", "source": K1_SOURCE, "replaces": K1_BWD_REPLACES,
             "launches": bwd_launches, "max_abs_err": errs["K1-bwd"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": bound_by,
-            "library_ms": tot["library_ms"]}, errs["K1"], nms_launches
+            "library_ms": tot["library_ms"]}, errs["K1"], nms_launches, bn_launches
 
 
 def profile_step(step, top: int = 14):
@@ -3175,6 +3201,167 @@ def nms_phase(dev) -> dict:
     return entry
 
 
+def bn_shapes(dev) -> list:
+    """The BatchNorm calls of one b25 training step at 512 px of the
+    flagship model (DLA-34): (shape, dtype, whether a gradient is taken),
+    in call order, from one training forward of its backbone."""
+    import torch
+    from weakcube_tpu_torch.entry import dims_priors, flagship_cfg, make_batch
+    from weakcube_tpu_torch.models.layers import BatchNorm2d
+    from weakcube_tpu_torch.models.rcnn3d import build_model
+    cfg = flagship_cfg(TRAIN_SIZE)
+    model = build_model(cfg, dims_priors(cfg.MODEL.ROI_HEADS.NUM_CLASSES), device=dev, seed=1)
+    model.train()
+    calls = []
+
+    def hook(module, args):
+        x = args[0]
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            fail(f"a BatchNorm input of shape {tuple(x.shape)} is not channels_last")
+        calls.append((tuple(x.shape), x.dtype, torch.is_grad_enabled()))
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, BatchNorm2d)]
+    images = make_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, seed=5, device=dev)["image"]
+    model.backbone(model._prep_image(images))
+    for h in hooks:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def bn_phase(dev) -> dict:
+    """Phase 33: BatchNorm's training kernels (csrc/batch_norm.cu) on the 39
+    BatchNorm calls of the b25 step at 512 px: per call, y and dx held to
+    the plain chain (models/layers.py with the kernels switched off) on the
+    same tensors, the kernels' device ms forward and backward against the
+    least bytes the function needs (`bound_ms`: forward x read and y
+    written, backward g and x read and dx written) and against those of
+    their two-read design (`design_floor_ms`: x read twice forward, g and x
+    twice backward), at 3.35 TB/s, the plain chain's forward + backward
+    and, as a yardstick the port never calls, F.batch_norm's (PyTorch's own
+    training kernels, another variance); the launches of each path. Returns
+    the kernels-line entry (ms a step) with `launches_a_step`, the kernels'
+    launches in one step's calls."""
+    from unittest import mock
+    import torch
+    import torch.nn.functional as F
+    from weakcube_tpu_torch.models.layers import BatchNorm2d
+    from weakcube_tpu_torch.ops import batch_norm_cuda as bnc
+    for line in bnc.build_log.splitlines():
+        if any(w in line for w in ("registers", "spill")):
+            print(f"  ptxas: {line.strip()}")
+    calls = bn_shapes(dev)
+    print(f"[bn] {len(calls)} BatchNorm calls in the b{TRAIN_BATCH} step's backbone forward, "
+          f"{sum(not c[2] for c in calls)} without a gradient (the dead project)")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    plain_off = mock.patch.object(bnc, "takes", lambda *a: False)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "design_floor_ms": 0.0,
+           "library_ms": 0.0}
+    launches, split = {}, {}
+    for i, (shape, dt, grad) in enumerate(calls):
+        N, C, H, W = shape
+        x = torch.randn((N, H, W, C), generator=gen, device=dev).to(dt).permute(0, 3, 1, 2)
+        g = torch.randn((N, H, W, C), generator=gen, device=dev).to(dt).permute(0, 3, 1, 2)
+        bn = BatchNorm2d(C).to(dev).train()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(generator=gen)
+        args = (bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.momentum, bn.eps)
+        xr = x.detach().requires_grad_(grad)
+
+        def kernel_step():
+            y = bn(xr)
+            if grad:
+                y.backward(g)
+            return y
+
+        def plain_step():
+            with plain_off:
+                return kernel_step()
+        before = (bnc.batch_norm_train.launches, bnc.batch_norm_train_backward.launches)
+        y_k = kernel_step()
+        dx_k = xr.grad if grad else None
+        xr.grad = None
+        after = (bnc.batch_norm_train.launches, bnc.batch_norm_train_backward.launches)
+        if after != (before[0] + 2, before[1] + 2 * grad):
+            fail(f"BatchNorm call {i}: launches {before} -> {after}")
+        y_p = plain_step()
+        for name, a, b in (("y", y_k, y_p), ("dx", dx_k, xr.grad)):
+            if a is None:
+                continue
+            err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            if not err <= 1e-2:  # a few bf16 steps of the largest value
+                fail(f"BatchNorm call {i} {shape}: {name} off the plain chain by {err:.3e}")
+        xr.grad = None
+        if i in (0, len(calls) - 1) or not grad:
+            key = "with grad" if grad else "no grad"
+            if key not in launches:
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
+                        as prof:
+                    plain_step()
+                    torch.cuda.synchronize()
+                launches[key] = {"kernels": 2 + 2 * grad, "plain": sum(
+                    e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())}
+                xr.grad = None
+        fwd = lambda: bnc._forward(x, *args)  # noqa: E731
+        _, coef, _ = fwd()
+        if shape not in split:  # each kernel's device time, once a shape
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
+                    as prof:
+                fwd()
+                if grad:
+                    bnc.batch_norm_train_backward(g, x, bn.weight, coef)
+                torch.cuda.synchronize()
+            split[shape] = {k: sum(e.time_range.elapsed_us() for e in prof.events()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA
+                                   and f"bn_train_{k}_kernel" in e.name)
+                            for k in ("stats", "apply", "grad_reduce", "grad_input")}
+            print(f"[bn] {shape} us a kernel: {split[shape]}")
+        ms_f = kernel_device_ms(fwd, 20)
+        ms_b = kernel_device_ms(lambda: bnc.batch_norm_train_backward(g, x, bn.weight, coef),
+                                20) if grad else 0.0
+        # the plain chain and the library queue dozens of launches and
+        # autograd's bookkeeping: a ~50 ms sleep hides them
+        plain_ms = kernel_device_ms(plain_step, 1, 100_000_000)
+        xr.grad = None
+        bound = x.numel() * x.element_size() * (2 + 3 * grad) / PEAK_BYTES_PER_S * 1e3
+        design = x.numel() * x.element_size() * (3 + 5 * grad) / PEAK_BYTES_PER_S * 1e3
+
+        def library():
+            xl = x.detach().requires_grad_(grad)
+            y = F.batch_norm(xl, bn.running_mean.clone(), bn.running_var.clone(), bn.weight,
+                             bn.bias, True, 0.1, bn.eps)
+            if grad:
+                y.backward(g)
+        try:
+            lib_ms = kernel_device_ms(library, 1, 100_000_000)
+        except RuntimeError as e:  # PyTorch's kernels may refuse bf16 x with float32 weights
+            print(f"[bn] F.batch_norm refused {shape}: {str(e).splitlines()[0]}")
+            lib_ms = None
+        bn.zero_grad(set_to_none=True)
+        ms = ms_f + ms_b
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                     ("design_floor_ms", design), ("library_ms", lib_ms)):
+            tot[k] = None if v is None or tot[k] is None else tot[k] + v
+        print(f"[bn] {i:2d} {shape} {str(dt)[6:]} {'grad' if grad else 'no grad'}: kernels "
+              f"{ms_f:.4f} + {ms_b:.4f} = {ms:.4f} ms device, least bytes "
+              f"{bound:.4f} ms ({100 * bound / ms:.1f}%), two-read design {design:.4f} ms "
+              f"({100 * design / ms:.1f}%), plain chain {plain_ms:.4f} ms, "
+              f"F.batch_norm {lib_ms} ms")
+    per_step = sum(4 if grad else 2 for _, _, grad in calls)
+    print(f"[bn] a step's {len(calls)} calls: kernels {tot['ms']:.3f} ms device "
+          f"(least-bytes bound {tot['bound_ms']:.3f} ms, "
+          f"{100 * tot['bound_ms'] / tot['ms']:.1f}%; two-read design floor "
+          f"{tot['design_floor_ms']:.3f} ms, {100 * tot['design_floor_ms'] / tot['ms']:.1f}%), "
+          f"plain chain {tot['plain_ms']:.3f} ms, F.batch_norm {tot['library_ms']} ms; "
+          f"launches a call by path: {launches}; the kernels' launches a step: {per_step}")
+    return {"name": "batch_norm_train (BatchNorm training: statistics, normalisation, "
+                    "gradient), the b25 step's calls", "route": "cuda", "source": BN_SOURCE,
+            "replaces": BN_REPLACES, "bound_by": "bytes", "calls": len(calls),
+            "launches_a_call": launches, "launches_a_step": per_step, **tot}
+
+
 def main() -> None:
     try:
         import torch
@@ -3191,6 +3378,7 @@ def main() -> None:
         from weakcube_tpu_torch.evaluation import _native as eval_native
         from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
         from weakcube_tpu_torch.ops import flash_attention_cuda, roi_align_cuda
+        from weakcube_tpu_torch.ops import batch_norm_cuda
         from weakcube_tpu_torch.ops import nms as nms_ops
         from weakcube_tpu_torch.ops.cuda_build import build_host_library
     except ImportError as e:
@@ -3217,7 +3405,7 @@ def main() -> None:
     with ThreadPoolExecutor(4) as pool:
         builds = [(name, mod, pool.submit(mod.build))
                   for name, mod in (("K1", roi_align_cuda), ("K2", flash_attention_cuda),
-                                    ("NMS", nms_ops))]
+                                    ("NMS", nms_ops), ("BN", batch_norm_cuda))]
         matcher = pool.submit(build_host_library, eval_native.SOURCE)
         for name, mod, fut in builds:
             lib_path = fut.result()
@@ -3267,6 +3455,11 @@ def main() -> None:
     t = time.time()
     nms_entry = nms_phase(dev)
     print(f"[phase] 32 (NMS kernel at the cells' shapes) took {time.time() - t:.1f} s")
+    t = time.time()
+    bn_entry = bn_phase(dev)
+    bn_phase_launches = (batch_norm_cuda.batch_norm_train.launches
+                         + batch_norm_cuda.batch_norm_train_backward.launches)
+    print(f"[phase] 33 (BatchNorm training kernels) took {time.time() - t:.1f} s")
 
     # -- 4. the flagship forward, full width ------------------------------
     cfg = flagship_cfg(512)
@@ -3443,7 +3636,10 @@ def main() -> None:
 
     # -- 11.-13. the training step ---------------------------------------------
     t = time.time()
-    k1_bwd, max_err["train"], nms_step_launches = train_phases(dev)
+    bn_before_12 = (batch_norm_cuda.batch_norm_train.launches
+                    + batch_norm_cuda.batch_norm_train_backward.launches - bn_phase_launches)
+    k1_bwd, max_err["train"], nms_step_launches, bn_step_launches = train_phases(
+        dev, bn_entry["launches_a_step"])
     print(f"[phase] 11-13 (training step) took {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
 
@@ -3521,6 +3717,8 @@ def main() -> None:
             new_bwd[f"sweep {key} supervised step (6 x b{TRAIN_BATCH})"] = r["train"]["k1_bwd"]
 
     # -- 14. result lines ---------------------------------------------------
+    bn_after_12 = (batch_norm_cuda.batch_norm_train.launches
+                   + batch_norm_cuda.batch_norm_train_backward.launches)
     print(card)  # again beside the results at the end of the output
     # K1's launches: the detection forward's and the eval CLI's runs, each
     # counted from 0; its times are per b8 forward, and per b32 eval batch
@@ -3548,7 +3746,14 @@ def main() -> None:
                                if k != "adam_card_vs_cpu"))), k2,
         dict(nms_entry, launches=nms_fwd_launches + nms_step_launches, launches_by_path={
             "detection forward (4 x b8)": nms_fwd_launches,
-            f"training step ({1 + TRAIN_STEPS} x b{TRAIN_BATCH})": nms_step_launches})]}))
+            f"training step ({1 + TRAIN_STEPS} x b{TRAIN_BATCH})": nms_step_launches}),
+        dict(bn_entry, launches=bn_phase_launches + bn_before_12 + bn_after_12,
+             launches_by_path={
+                 "phase 33 (the b25 step's calls, checks and timing)": bn_phase_launches,
+                 "phases 4-11": bn_before_12,
+                 f"training step ({1 + TRAIN_STEPS} x b{TRAIN_BATCH})": bn_step_launches,
+                 "the other one-process training steps (phase 12's profiled and kept steps, "
+                 "phases 15-31)": bn_after_12 - bn_step_launches})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,10 +4,15 @@ is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import contextlib
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
+from weakcube_tpu_torch.models.layers import BatchNorm2d
+from weakcube_tpu_torch.ops import batch_norm_cuda
 from weakcube_tpu_torch.ops import flash_attention_cuda
 from weakcube_tpu_torch.ops import nms as nms_ops
 from weakcube_tpu_torch.ops import roi_align as t_ra
@@ -529,3 +534,303 @@ def test_iou3d_card_vs_cpu(card):
     overlapping pairs on the card against the CPU (float32, atol 1e-5)."""
     from torch_geometry_check import iou3d_card_vs_cpu
     iou3d_card_vs_cpu(card, 200, seed=1)
+
+
+# ------------------------------------------------- BatchNorm training kernels
+BN_SIZES = {16: (32, 32), 64: (16, 16), 116: (8, 8), 512: (4, 4)}  # C -> (H, W) at N = 25
+
+
+def bn_inputs(card, dt, C, size=None, seed=0):
+    """x and g of (25, C, H, W) in NHWC memory (channels_last) in dt, and
+    float32 (weight, bias, running_mean, running_var). x's channels have
+    means ~N(0, 1) and spreads in 0.5-2, but channel 1 a mean of 64 against
+    a spread of 0.25 and channel 2 the constant 0.75 (its variance clamps
+    to 0)."""
+    H, W = size or BN_SIZES[C]
+    rng = np.random.default_rng(seed + C)
+    mean, spread = rng.normal(size=C), rng.uniform(0.5, 2.0, size=C)
+    if C > 2:
+        mean[1], spread[1] = 64.0, 0.25
+        mean[2], spread[2] = 0.75, 0.0
+
+    def nhwc(a):
+        return torch.from_numpy(a.astype(np.float32)).to(card, dt).permute(0, 3, 1, 2)
+    x = nhwc(rng.normal(size=(25, H, W, C)) * spread + mean)
+    g = nhwc(rng.normal(size=(25, H, W, C)))
+    params = [torch.from_numpy(a.astype(np.float32)).to(card) for a in (
+        rng.uniform(0.5, 1.5, C), rng.normal(size=C), rng.normal(size=C),
+        rng.uniform(0.5, 2.0, C))]
+    return x, g, params
+
+
+def bn_module(card, params, param_dtype=torch.float32):
+    bn = BatchNorm2d(params[0].shape[0]).to(card, param_dtype)
+    with torch.no_grad():
+        for t, v in zip((bn.weight, bn.bias, bn.running_mean, bn.running_var), params):
+            t.copy_(v)
+    return bn
+
+
+def bn_run(card, x, g, params, plain=False, param_dtype=torch.float32, misalign=False):
+    """A training-mode BatchNorm2d on x, its backward from g: (y, pending
+    mean, pending var, dx, grad weight, grad bias), through the kernels or
+    (plain) the plain chain on the same CUDA tensors; the module's
+    parameters and statistics in param_dtype, and (misalign) x a view one
+    element into its storage."""
+    bn = bn_module(card, params, param_dtype)
+    if misalign:
+        N, C, H, W = x.shape
+        flat = torch.cat([x.new_zeros(1), x.permute(0, 2, 3, 1).reshape(-1)])
+        xi = flat.requires_grad_()[1:].view(N, H, W, C).permute(0, 3, 1, 2)
+        xi.retain_grad()
+    else:
+        xi = x.detach().clone().requires_grad_()
+    with mock.patch.object(batch_norm_cuda, "takes", lambda *a: False) if plain \
+            else contextlib.nullcontext():
+        y = bn(xi)
+        y.backward(g)
+    return (y.detach(), *bn.pending, xi.grad, bn.weight.grad, bn.bias.grad)
+
+
+def bn_oracle(x, g, params):
+    """The same six in float64: flax's statistics, autograd's gradient."""
+    x = x.double().requires_grad_()
+    w, b = (p.double().requires_grad_() for p in params[:2])
+    mean = x.mean((0, 2, 3))
+    var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+    y = (x - mean[:, None, None]) * (torch.rsqrt(var + 1e-5) * w)[:, None, None] \
+        + b[:, None, None]
+    y.backward(g.double())
+    return (y.detach(), 0.9 * params[2].double() + 0.1 * mean.detach(),
+            0.9 * params[3].double() + 0.1 * var.detach(), x.grad, w.grad, b.grad)
+
+
+def bn_launches():
+    return (batch_norm_cuda.batch_norm_train.launches,
+            batch_norm_cuda.batch_norm_train_backward.launches)
+
+
+BN_OUTPUTS = ("y", "pending mean", "pending var", "dx", "grad weight", "grad bias")
+
+
+@pytest.mark.parametrize("C", sorted(BN_SIZES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_batch_norm_kernels_match_float64(card, dtype, C):
+    """The kernels and the plain chain against float64 on (25, C, H, W),
+    C = 16, 64 and 512 on the 16-byte vector path, 116 on the scalar one,
+    with a channel whose mean is 256 times its spread and a constant one:
+    each of y, the pending statistics and the gradients of x, weight and
+    bias within three times the plain chain's own error (largest gap over
+    the largest value; one float32 rounding where the plain chain is
+    exact). Two launches forward and two backward; y and dx in x's dtype
+    and layout."""
+    dt = getattr(torch, dtype)
+    x, g, params = bn_inputs(card, dt, C)
+    before = bn_launches()
+    got = bn_run(card, x, g, params)
+    torch.cuda.synchronize()
+    assert bn_launches() == (before[0] + 2, before[1] + 2)
+    plain = bn_run(card, x, g, params, plain=True)
+    assert bn_launches() == (before[0] + 2, before[1] + 2)
+    want = bn_oracle(x, g, params)
+    for name, a, p, w in zip(BN_OUTPUTS, got, plain, want):
+        assert a.dtype == p.dtype and a.shape == p.shape, name
+        err_k, err_p = [float((t.double() - w).abs().max() / w.abs().max()) for t in (a, p)]
+        assert err_k <= max(3 * err_p, 2.0 ** -24), \
+            f"{name}: kernels {err_k:.3e} against the plain chain's {err_p:.3e}"
+    for t in (got[0], got[3]):
+        assert t.dtype == dt and t.is_contiguous(memory_format=torch.channels_last)
+
+
+# the b25 step's DLA-34 BatchNorm shapes at 512 px, ShuffleNetV2's 116, and
+# small ragged ones (C = 6: two channels a thread in the statistics)
+BN_STEP_SHAPES = [(25, 16, 512, 512), (25, 32, 256, 256), (25, 64, 128, 128), (25, 128, 64, 64),
+                  (25, 256, 32, 32), (25, 512, 16, 16), (25, 116, 8, 8), (3, 24, 5, 7),
+                  (2, 6, 1, 9)]
+
+
+@pytest.mark.parametrize("shape", BN_STEP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_batch_norm_forward_is_the_plain_chain_bit_for_bit(card, dtype, shape):
+    """The statistics kernel sums x and x^2 in the order of PyTorch's own
+    reduction of the plain chain's float32 tensors and finishes, and the
+    normalisation rounds, op by op as the chain does: y and the pending
+    statistics equal the plain chain's bit for bit (a rounding-level change
+    there moves the RPN's top-k and the sampled RoIs of a step)."""
+    N, C, H, W = shape
+    g = torch.Generator(device=card).manual_seed(C)
+    x = (torch.randn((N, H, W, C), generator=g, device=card) * 1.5 + 0.5).to(
+        getattr(torch, dtype)).permute(0, 3, 1, 2)
+    params = [torch.rand(C, generator=g, device=card) + 0.5 for _ in range(4)]
+    outs = []
+    for plain in (False, True):
+        bn = bn_module(card, params)
+        with torch.no_grad(), (mock.patch.object(batch_norm_cuda, "takes", lambda *a: False)
+                               if plain else contextlib.nullcontext()):
+            before = bn_launches()
+            outs.append((bn(x), *bn.pending))
+            assert bn_launches() == (before if plain else (before[0] + 2, before[1]))
+    for name, a, b in zip(("y", "pending mean", "pending var"), *outs):
+        assert torch.equal(a, b), f"{name}: {int((a != b).sum())} of {a.numel()} differ"
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_batch_norm_kernels_same_bits_twice(card, dtype):
+    """(25, 16, 128, 128): 409600 rows over a full grid of row chunks; two
+    calls give the same bits in all six outputs (no float atomics)."""
+    x, g, params = bn_inputs(card, getattr(torch, dtype), 16, size=(128, 128))
+    first, second = bn_run(card, x, g, params), bn_run(card, x, g, params)
+    for name, a, b in zip(BN_OUTPUTS, first, second):
+        assert torch.equal(a, b), name
+
+
+def test_batch_norm_without_grad_saves_nothing(card):
+    """Under no_grad, and with nothing requiring a gradient, a training call
+    is the two forward launches and nothing else: no graph, the same y and
+    pending statistics bit for bit as the call with a gradient."""
+    x, g, params = bn_inputs(card, torch.bfloat16, 64)
+    full = bn_run(card, x, g, params)
+    bn = bn_module(card, params)
+    before = bn_launches()
+    with torch.no_grad():
+        y = bn(x)
+    assert bn_launches() == (before[0] + 2, before[1])
+    assert y.grad_fn is None
+    for a, b in zip((y, *bn.pending), full[:3]):
+        assert torch.equal(a, b)
+    bn.weight.requires_grad_(False)
+    bn.bias.requires_grad_(False)
+    y = bn(x)
+    assert bn_launches() == (before[0] + 4, before[1]) and y.grad_fn is None
+
+
+@pytest.mark.parametrize("case", ["float64", "nchw"])
+def test_batch_norm_plain_inputs_on_card(card, case):
+    """CUDA tensors the kernels do not take (float64, an NCHW-contiguous
+    tensor) run the plain chain: no launch, the plain chain's bits."""
+    x, g, params = bn_inputs(card, torch.float32, 64)
+    x, g = (x.double(), g.double()) if case == "float64" else (x.contiguous(), g.contiguous())
+    before = bn_launches()
+    got = bn_run(card, x, g, params)
+    want = bn_run(card, x, g, params, plain=True)
+    assert bn_launches() == before
+    for name, a, b in zip(BN_OUTPUTS, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", ["one_channel", "many_channels", "misaligned", "bf16_params"])
+def test_batch_norm_kernels_take_every_card_input(card, case):
+    """Channels_last CUDA inputs that are not the b25 step's run the kernels
+    too, never the plain chain: one channel (25, 1, 16, 16); 140001
+    channels at one pixel (1094 column chunks: the counters grow); a bf16 x
+    one element into its storage (the scalar path, one channel a load in
+    the statistics); bf16 parameters and statistics (read as float32, the
+    pending statistics back in bf16). Two launches forward and two
+    backward, and each output within three times the plain chain's own
+    error against float64, as in test_batch_norm_kernels_match_float64,
+    or within five float32 roundings of its value: with one channel the
+    largest error is one number, and both paths share r = rsqrtf(v + eps)
+    bit for bit, up to 2 ulp (4 roundings) from float64's, before the
+    gradient's own product rounds once more (the plain chain's sum can
+    cancel part of r's error by chance: 3.1e-8 against the kernels'
+    1.0e-7 on the card)."""
+    C, size = {"one_channel": (1, (16, 16)), "many_channels": (140001, (1, 1))}.get(case,
+                                                                                   (64, None))
+    x, g, params = bn_inputs(card, torch.bfloat16, C, size)
+    pdt = torch.bfloat16 if case == "bf16_params" else torch.float32
+    params = [p.to(pdt).float() for p in params]
+    opts = dict(param_dtype=pdt, misalign=case == "misaligned")
+    before = bn_launches()
+    got = bn_run(card, x, g, params, **opts)
+    assert bn_launches() == (before[0] + 2, before[1] + 2)
+    plain = bn_run(card, x, g, params, plain=True, **opts)
+    want = bn_oracle(x, g, params)
+    for name, a, p, w in zip(BN_OUTPUTS, got, plain, want):
+        assert a.dtype == p.dtype and a.shape == p.shape, name
+        err_k, err_p = [float((t.double() - w).abs().max() / w.abs().max()) for t in (a, p)]
+        assert err_k <= max(3 * err_p, 5 * 2.0 ** -24), \
+            f"{name}: kernels {err_k:.3e} against the plain chain's {err_p:.3e}"
+
+
+def test_batch_norm_kernels_take_one_row(card):
+    """(1, 24, 1, 1): one value a channel. The kernels take it: y (the
+    bias) and the pending statistics are the plain chain's bit for bit, and
+    dx (zero but for rounding), grad weight and grad bias within one
+    float32 rounding of the largest |g * weight| of the plain chain's."""
+    x, g, params = bn_inputs(card, torch.float32, 24, (1, 1))
+    x, g = x[:1], g[:1]
+    before = bn_launches()
+    got = bn_run(card, x, g, params)
+    assert bn_launches() == (before[0] + 2, before[1] + 2)
+    plain = bn_run(card, x, g, params, plain=True)
+    for name, a, b in zip(BN_OUTPUTS[:3], got, plain):
+        assert torch.equal(a, b), name
+    scale = float((g.abs().amax((0, 2, 3)) * params[0].abs() * 316.3).max())  # rsqrt(1e-5)
+    for name, a, b in zip(BN_OUTPUTS[3:], got[3:], plain[3:]):
+        assert float((a - b).abs().max()) <= 2.0 ** -23 * scale, name
+
+
+def test_batch_norm_kernels_take_a_large_tensor(card):
+    """(2, 16, 4096, 4100) bfloat16: its float32 copy passes 2^31 bytes, so
+    PyTorch's reduction splits it; the kernels index in 64 bits and keep
+    their own order. Each output within three times the plain chain's own
+    error against float64 (computed a batch entry at a time)."""
+    N, C, H, W = 2, 16, 4096, 4100
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = (torch.randn((N, H, W, C), generator=gen, device=card) * 1.5 + 0.5).to(
+        torch.bfloat16).permute(0, 3, 1, 2)
+    g = torch.randn((N, H, W, C), generator=gen, device=card).to(torch.bfloat16).permute(
+        0, 3, 1, 2)
+    params = [torch.rand(C, generator=gen, device=card) + 0.5 for _ in range(4)]
+    before = bn_launches()
+    got = bn_run(card, x, g, params)
+    assert bn_launches() == (before[0] + 2, before[1] + 2)
+    plain = bn_run(card, x, g, params, plain=True)
+    R = N * H * W
+    w, b, rm, rv = (p.double() for p in params)
+    s1 = sum(x[n].double().sum((1, 2)) for n in range(N))
+    s2 = sum(x[n].double().square().sum((1, 2)) for n in range(N))
+    m = s1 / R
+    v = (s2 / R - m * m).clamp(min=0.0)
+    r = torch.rsqrt(v + 1e-5)
+    a = r * w
+    sg = sum(g[n].double().sum((1, 2)) for n in range(N))
+    sgx = sum((g[n].double() * (x[n].double() - m[:, None, None])).sum((1, 2)) for n in range(N))
+    vectors = {"pending mean": 0.9 * rm + 0.1 * m, "pending var": 0.9 * rv + 0.1 * v,
+               "grad weight": sgx * r, "grad bias": sg}
+    err = {}
+    for name, want in vectors.items():
+        i = BN_OUTPUTS.index(name)
+        err[name] = [float((t[i].double() - want).abs().max() / want.abs().max())
+                     for t in (got, plain)]
+    k, c = (a / R)[:, None, None], (a * r * r * sgx / R)[:, None, None]
+    for name in ("y", "dx"):
+        i = BN_OUTPUTS.index(name)
+        gaps, top = [0.0, 0.0], 0.0
+        for n in range(N):
+            xc = x[n].double() - m[:, None, None]
+            want = (xc * a[:, None, None] + b[:, None, None] if name == "y"
+                    else g[n].double() * a[:, None, None] - k * sg[:, None, None] - c * xc)
+            top = max(top, float(want.abs().max()))
+            gaps = [max(q, float((t[i][n].double() - want).abs().max()))
+                    for q, t in zip(gaps, (got, plain))]
+        err[name] = [q / top for q in gaps]
+    for name, (err_k, err_p) in err.items():
+        assert err_k <= max(3 * err_p, 2.0 ** -24), \
+            f"{name}: kernels {err_k:.3e} against the plain chain's {err_p:.3e}"
+
+
+@pytest.mark.parametrize("case", ["empty", "parameters_on_the_cpu"])
+def test_batch_norm_refused_card_input_raises(card, case):
+    """A channels_last CUDA input the kernels cannot take raises, and runs
+    neither the kernels nor the plain chain: an empty batch (no statistics
+    to take), a module whose parameters are on the CPU."""
+    x = torch.randn((0 if case == "empty" else 4, 16, 3, 3), device=card).contiguous(
+        memory_format=torch.channels_last)
+    bn = BatchNorm2d(16).train()
+    if case == "empty":
+        bn = bn.to(card)
+    before = bn_launches()
+    with pytest.raises(ValueError):
+        bn(x)
+    assert bn_launches() == before and bn.pending is None

@@ -34,6 +34,7 @@ def test_no_jax_imports(path):
 def test_import_leaves_jax_out():
     code = ("import sys, weakcube_tpu_torch.entry, weakcube_tpu_torch.utils.convert, "
             "weakcube_tpu_torch.ops.roi_align_cuda, weakcube_tpu_torch.ops.flash_attention_cuda, "
+            "weakcube_tpu_torch.ops.batch_norm_cuda, "
             "weakcube_tpu_torch.data.generate_depth_maps, weakcube_tpu_torch.data.datasets, "
             "weakcube_tpu_torch.data.synthetic, weakcube_tpu_torch.solver, "
             "weakcube_tpu_torch.parallel.train_step, weakcube_tpu_torch.parallel.distributed, "

@@ -19,6 +19,13 @@ train step does only when it applies the update (flax's mutable
 batch_stats, returned and kept or dropped by the step). In a data-parallel
 run the training statistics are those of the global batch, as under the
 JAX package's sharding: every rank normalises with them and records them.
+
+On one process, a training call on an NHWC-contiguous (channels_last) CUDA
+tensor in bfloat16 or float32 runs the hand-written kernels of
+ops/batch_norm_cuda.py (csrc/batch_norm.cu): the same statistics, output,
+pending statistics and gradient in two launches forward and two backward.
+Every other call (CPU tensors, float64, another layout, a data-parallel run,
+eval mode) runs the plain chain below.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import batch_norm_cuda
 from ..parallel import distributed
 from ..parallel.mesh import global_sum
 
@@ -49,6 +57,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.pending = None  # (running_mean, running_var) after this batch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and batch_norm_cuda.takes(x) and distributed.process_count() == 1:
+            y, pending_mean, pending_var = batch_norm_cuda.batch_norm_train(
+                x, self.weight, self.bias, self.running_mean, self.running_var, self.momentum,
+                self.eps)
+            self.pending = (pending_mean, pending_var)
+            return y
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))  # float64 stays
         if not self.training:
             y = F.batch_norm(x32, self.running_mean.to(x32.dtype), self.running_var.to(x32.dtype),
