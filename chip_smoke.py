@@ -1,31 +1,68 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU.
+"""The PyTorch port's correctness check on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit) when it fails:
+Every phase checks the port on the card (against its plain versions, the
+CPU, launch and sync counts, bit identity) and fails the run (non-zero
+exit) when a check fails. Beside the checks it times each kernel alone
+(`kernel_device_ms`: the device's time per call, the host's enqueue hidden
+behind a sleep kernel) next to the least time of the benchmark's frozen
+yardstick (benchmark/harness/bounds.py and k2_bound.py), and the paths that
+no benchmark cell measures yet (the CLIs, the mapper, the evaluator, the
+ground pseudo-GT pipeline, data-parallel NCCL; each names the ROADMAP.md
+Queue F item whose cell will replace it). End-to-end timings of what a cell
+measures (the b8 detection forward, the depth forward, the b25 training
+step), profiles and library yardsticks are the benchmark's
+(benchmark/run.py).
+
+Phases, in the order they run:
   1. print the card's name and power limit (nvidia-smi);
-  2. build the ROIAlign (K1 and K1-bwd, one source) and flash-attention (K2)
-     CUDA kernels from weakcube_tpu_torch/csrc, one nvcc each, and the
-     evaluator's greedy matcher (host C++, g++), in parallel;
+  2. build the ROIAlign (K1 and K1-bwd, one source), flash-attention (K2),
+     NMS and BatchNorm CUDA kernels from weakcube_tpu_torch/csrc, one nvcc
+     each, and the evaluator's greedy matcher (host C++, g++), in parallel;
   3. hold K1 against its plain PyTorch version at the main path's shapes
      (b8, levels 128^2..8^2 x 256, R = 1000 and 100), with edge-case boxes
      (past the borders, sub-pixel, elongated, hugging a border, empty,
      huge), in float32 and bfloat16;
+ 3b. K1's open fault: tests/test_torch_cuda.py::
+     test_kernel_many_rois_per_block's seeds, dtypes and box mixes, 50
+     launches each (300), every launch bit-identical to the first and within
+     tolerance of the plain version; on a mismatch the RoI, its level,
+     staged lines, persistent block and channel chunk;
+ 3c. compute-sanitizer racecheck on one such K1 launch where the host has
+     the tool (a hazard fails the run);
+ 32. the NMS kernel (csrc/nms.cu) at the cells' shapes: the RPN's 125 x
+     2000 (b25 x 5 levels, p5 / p6 padded) and 40 x 1000, and the box NMS's
+     8 x 1024 with 38 classes through batched_nms_mask, boxes drawn as
+     near-duplicates with bf16-tied scores (tests/torch_nms_boxes.py): the
+     keep mask held bit for bit to the plain fixed point on the same CUDA
+     tensors, and the kernel launched alone to nms_mask's; the kernel's
+     and the whole nms_mask call's device time, beside the bytes nms_mask
+     needs over HBM bandwidth;
+ 33. BatchNorm's training kernels (csrc/batch_norm.cu) on the 39 BatchNorm
+     calls of the b25 step at 512 px (DLA-34; 37 with a gradient, 2
+     without): each input channels_last, the kernels' launches per call, y
+     and dx against the plain chain on the same tensors; the kernels' device
+     ms forward and backward beside the least bytes the function needs (x
+     read and y written forward; g and x read and dx written backward) over
+     HBM bandwidth; the kernels' launches a step, which phase 12 checks;
   4. build the full-width flagship model (configs/Omni_combined.yaml:
      DLA-34 + FPN 256, 38 classes, bf16 compute) with random weights from a
-     seed, and run one warm-up plus 3 forwards of 8 images at 512 px;
-  5. check the outputs (shapes, finite values, K1 launched exactly twice per
-     forward) and hold K1 against the plain version on the forward's own
-     pyramid and boxes; check a small float32 model on the card against the
-     same model on the CPU;
-  6. time the forward; K1 and a library yardstick in turns (5 rounds,
-     medians), K1's device time per launch (the host's enqueue hidden
-     behind a sleep kernel) and K1's plain
-     version, per pooler, beside two bounds (the whole pyramid, and the
-     pixels the forward's boxes touch) and the bytes K1 stages from L2;
-     K1 on as many real-size RoIs (p3-p5 squares of 14-28 feature units)
-     and on sub-pixel RoIs at one spot (every read a cache hit), checked
-     and timed; profile one forward;
+     seed, and run 4 forwards of 8 images at 512 px;
+  5. check the outputs (shapes, finite values, K1 and NMS launched exactly
+     twice per forward) and hold K1 against the plain version on the
+     forward's own pyramid and boxes; check a small float32 model on the
+     card against the same model on the CPU;
+  6. K1's device time per launch on the forward's two pooler calls beside
+     its bound (bounds.roi_align_bound_s: the pixels the boxes touch); K1
+     on as many real-size RoIs (p3-p5 squares of 14-28 feature units) and
+     on sub-pixel RoIs at one spot (every read a cache hit), checked and
+     timed the same way;
+ 10. hold K1-bwd (the feature gradient of K1) against its plain version (the
+     explicit scatter), float32 and bfloat16, on the forward checks' box
+     sets (edge cases, p3-p5 squares, tests/torch_roi_boxes.py), the
+     detection forward's own pyramid and proposals, and no RoIs; a second
+     launch on the same inputs must give the same bits;
   7. hold K2 against its plain PyTorch version at B16 H16 d64 with
      N = 1, 50, 63, 64, 65, 127, 128, 129, 197 and 1370 (the tile edges and
      ragged tiles), in bfloat16 and float32, on contiguous q, k, v and on
@@ -39,57 +76,107 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      own q, k, v from that run (contiguous copies and the projection's own
      views); a small float32 ViT-S on the card against the CPU at 98 and
      196 px; the maps stay for phase 29;
-  9. time the depth forward (B16), K2 (on block 11's q, k, v made
-     contiguous, and on the path's own strided views) and
-     F.scaled_dot_product_attention as a yardstick in turns, and K2's plain
-     version; profile one forward and
-     count its layout copies (at most 28: no q, k, v or output copies
-     around K2);
- 10. (after 6) hold K1-bwd (the feature gradient of K1) against its plain
-     version (the explicit scatter), float32 and bfloat16, on the forward
-     checks' box sets (edge cases, p3-p5 squares, tests/torch_roi_boxes.py),
-     the detection forward's own pyramid and proposals, and no RoIs; a
-     second launch on the same inputs must give the same bits;
+  9. K2's device time per launch on block 11's q, k, v (contiguous and the
+     projection's views) beside its bound (k2_bound.flash_attention_bound_s);
+     one B16 depth forward under the profiler launches at most 28 layout
+     copies (no q, k, v or output copies around K2);
+ 29. the recipe's ground pseudo-GT pipeline from phase 8's depth maps
+     (re-generated if gone): (a) depth-ransac ground maps on the card
+     (data/generate_ground_segmentations.py), their IoU with each scene's
+     true ground (ops/boxes.py::mask_iou), and the same on the scenes'
+     analytic depth; card vs CPU on 4 maps with the same injected draws
+     (equal masks); (b) the foundation method at full width with random
+     weights (GroundingDINO Swin-T OGC: BERT-base, 6 + 6 layers, 900
+     queries, 768 px; SAM-HQ vit_l at 1024 px; bf16; box_threshold -1):
+     every .npz a bool map of the image's shape, the CSV written; ms per
+     image of each model and of the path, peak memory; (c) small float32
+     GroundingDINO (1 + 2 layers, 16 queries, 112 px) and SAM vit_tiny (256
+     px), card vs CPU within 1e-3 of scale, the same top-k proposals; (d)
+     filter_ground, the priors CLI, the dataset loader (ground_image_path
+     only outside no_ground_idx.csv) and one mapper batch with finite
+     cached ground normals from the written maps;
  11. the small float32 training step on the card against the CPU with the
      same injected anchor labels and RoIs (tests/torch_train_check.py), and
      the ROI heads' gradient reaching the FPN through K1-bwd;
  12. the full-width weak training step (configs/Omni_combined.yaml, 38
      classes, bf16, batch 25 of tiny_batch at 512 px with 16 GT rows) through
-     create_train_state + train_step: one warm-up and 5 timed steps, every
-     loss finite, every update applied, K1 and K1-bwd launched twice per
-     step, NMS once, and BatchNorm's kernels 4 times per layer with a
-     gradient and twice per layer without (phase 33's count of the step's
-     calls: 152 a step); one step under the profiler;
+     create_train_state + train_step: 6 steps, every loss finite, every
+     update applied, K1 and K1-bwd launched twice per step, NMS once, and
+     BatchNorm's kernels 4 times per layer with a gradient and twice per
+     layer without (phase 33's count of the step's calls: 152 a step); peak
+     memory;
  13. K1 and K1-bwd held to their plain versions on that step's own
      pyramid, boxes and gradients (box pooler R = 512, cube pooler R = 128
      per image), K1-bwd's second launch bitwise equal to its first, and
      each K1-bwd call launching its kernel and nothing else (profiler);
-     K1-bwd's device time per call on them, CUDA events in turns with the
-     autograd backward of the library yardstick, the plain version, the
-     function's byte bound (g read, the level gradients written once) and
-     the tile gather's floor (g read once per (RoI, tile) pair);
- 3b. (after 3) K1's open fault: tests/test_torch_cuda.py::
-     test_kernel_many_rois_per_block's seeds, dtypes and box mixes, 50
-     launches each (300), every launch bit-identical to the first and within
-     tolerance of the plain version; on a mismatch the RoI, its level,
-     persistent block and channel chunk;
- 3c. compute-sanitizer racecheck on one such K1 launch where the host has
-     the tool (a hazard fails the run);
+     K1-bwd's device time per call on them beside its bound
+     (bounds.roi_align_bwd_bound_s: g read, the level gradients written
+     once);
+ 25. the supervised Cube R-CNN step at full width
+     (configs/cubercnn_DLA34_FPN.yaml: RCNN3D + ROIHeads3D, DLA-34, 38
+     classes, bf16), b25 of tiny_batch at 512 px with GT rotations drawn at
+     random: 6 steps, every loss finite, K1 and K1-bwd launched twice per
+     step and held to their plain versions on a step's own inputs; ms per
+     step, peak memory; the same step with LOSS_W_3D 0 (the recipe's
+     2D-only pretrain): once per step;
+ 26. the weak step with every loss at full width (the default
+     loss_functions, iou and segmentation; 64 x 64 per-GT masks filled from
+     the GT boxes), checked and timed as 25, every new loss logged;
+ 27. the small float32 supervised and all-loss steps on the card against
+     the CPU with injected anchor labels and RoIs (tests/torch_train_check.py);
+ 30. the backbone sweep: configs/cubercnn_ResNet34_FPN.yaml,
+     cubercnn_shufflenet_FPN.yaml, cubercnn_mnasnet_FPN.yaml and
+     cubercnn_densenet_FPN.yaml at full width (RCNN3D + ROIHeads3D, 38
+     classes, bf16, 512 px, random weights from seed 0), the card freed
+     between configs: (a) detection at b8, median of 3 forwards after a
+     warm-up, K1 twice per forward and held to its plain version on a
+     forward's own pyramid and boxes; (b) the supervised step at b25 as
+     phase 25, K1 and K1-bwd 2 + 2 per step and held to their plain
+     versions; ms per step, images/s, peak memory; (c) the small float32
+     supervised step of ResNet-18 (tiny_cfg(128)) with SOLVER.TYPE
+     adam+amsgrad, card vs CPU as phase 27, the parameters after the update
+     held to the same Adam update applied on the CPU to the card's
+     gradients; (d) the ResNet-34 model written as a released detectron2
+     .pth (fc1 columns in (C, 7, 7) order) and loaded through MODEL.WEIGHTS
+     into a fresh model: the same tensors and detections;
+ 23. DP-step: two data-parallel ranks over gloo, both on this card, b4 each
+     of a global b8, the full-width flagship in float32 (TF32 off, cuDNN
+     deterministic), against one process on the b8 with the same weights,
+     step generators and samples, after steps 1 and 3: every log, the skip
+     decision, every parameter and BatchNorm statistic, within three times
+     the one-process run's own difference when its rows are reordered or
+     its convolutions run without cuDNN (the same sums in another order): a
+     tensor's own or, where larger, its group's median share of its change
+     from the initial weights, and a log's step's largest share of its
+     value; each rank's Gumbel draws are its rows of the global draw, the
+     replicas hold the same bits, and each rank launches K1 and K1-bwd twice
+     per step, holds them to their plain versions on its own inputs and
+     times them;
  15. the train CLI at full width (weakcube_tpu_torch/tools/train_net.py:
      configs/Omni_combined.yaml, 50 synthetic scenes, b25 @ 512 px, bf16,
      cached ground normals): 6 iterations with a checkpoint at 4, then
      --resume to 8 from model_recent (iteration 4); K1 and K1-bwd launched
      twice per step, metrics.json written; steps/s, data and step time per
-     iteration, Cube/IoU3D of step 0;
+     iteration, the mapper alone, Cube/IoU3D of step 0;
  16. one full-width step on the mapper's batch without cached normals: the
      RANSAC ground planes on the card against the SVD fit of the same
-     canvases (|cos| > 0.995; the mapper's cached normals reported beside),
-     the fit timed; K1 and K1-bwd checked and timed on that step's pooler
-     inputs;
- 17. exact IoU3D on 25 x 128 cube pairs, card vs CPU (atol 1e-5), timed;
+     canvases (|cos| > 0.995; the mapper's cached normals reported beside);
+     K1 and K1-bwd checked and timed on that step's pooler inputs;
+ 17. exact IoU3D on 25 x 128 cube pairs, card vs CPU (atol 1e-5);
  18. RANSAC on 25 tilted noisy ground clouds with 1000 injected draws, card
      vs CPU (inlier counts within 0.1%, planes within 1e-5 where the same
-     hypothesis wins, else |cos| > 0.9999), timed;
+     hypothesis wins, else |cos| > 0.9999);
+ 31. the ops layer's last public functions, on the card and on the CPU:
+     convert_3d_box_to_2d and get_cuboid_verts on phase 4's b8 detections
+     (800 cubes, K per image) and on the GT cubes of
+     tiny_batch(25, 512, 512, G=16), as they are and 4 m nearer (in front
+     of, straddling and behind the camera); R_to_allocentric at each cube's
+     projected centre, round-tripped through R_from_allocentric;
+     matrix_to_rotation_6d and matrix_to_quaternion on the poses,
+     round-tripped; mask_iou of phase 29's 64 depth-ransac ground maps
+     (K2's and the analytic depth's) against the scenes' true ground;
+     uniform_topk_mask on the card's generator (its count, validity and
+     seed); card vs CPU within 1e-5 of scale, equal flags and masks;
  19. the eval CLI at full width (tools/eval_net.py --synthetic 64
      --eval-only) on phase 15's checkpoint: 38 classes, 512 px, bf16, two
      batches of 32; every scene counted once, K1 launched twice per batch;
@@ -97,116 +184,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      inference / records ms per batch, the evaluator's seconds, peak memory;
  20. K1 at an eval batch's shapes (b32, R = 1000 and 100, from phase 15's
      checkpoint): held to its plain version, its device time beside its
-     touched-pixel bound, the plain version and the library yardstick;
+     bound;
  21. phase 19's records through the evaluator with IoU3D on the card and on
      the CPU: the same AP within 1e-9, seconds per image on each;
  22. the demo (tools/demo.py) on four rendered PNGs, four JPEGs; the train
      CLI resumed for two iterations with TEST.EVAL_PERIOD and VIS_PERIOD:
      one evaluation of the live model, the two vis JPEGs;
- 23. DP-step (after 13, always run): two data-parallel ranks over gloo,
-     both on this card, b4 each of a global b8, the full-width flagship in
-     float32 (TF32 off, cuDNN deterministic), against one process on the b8
-     with the same weights, step generators and samples, after steps 1 and
-     3: every log, the skip decision, every parameter and BatchNorm
-     statistic, within three times the one-process run's own difference
-     when its rows are reordered or its convolutions run without cuDNN (the
-     same sums in another order): a tensor's own or, where larger, its
-     group's median share of its change from the initial weights, and a
-     log's step's largest share of its value; each
-     rank's Gumbel draws are its rows of the global draw, the replicas hold
-     the same bits, and each rank launches K1 and K1-bwd twice per step,
-     holds them to their plain versions on its own inputs and times them;
+ 28. the published recipe through the train CLI at full width on 50
+     synthetic scenes: configs/Base_Omni3D_2D_only.yaml for 4 iterations (K1
+     and K1-bwd once per step, no Cube/ key), then configs/Omni_combined.yaml
+     warm-started from its model_final by MODEL.WEIGHTS_PRETRAIN for 4
+     (twice per step); steps/s of each;
  24. DP-CLI, only where 2 or more cards are visible (else one line says it
      was not run): the train CLI data-parallel over W = 1, 2, 4, ... cards
      up to all (NCCL, 25 images per card): 6 iterations with a checkpoint
      at 4, --resume to 8 under the profiler (rank 0's NCCL kernels per step
      by kind), images/s, each rank's data, step and mapper ms; the eval CLI
      sharded over all cards on that checkpoint;
- 25. (after 13) the supervised Cube R-CNN step at full width
-     (configs/cubercnn_DLA34_FPN.yaml: RCNN3D + ROIHeads3D, DLA-34, 38
-     classes, bf16), b25 of tiny_batch at 512 px with GT rotations drawn at
-     random: one warm-up and 5 timed steps, every loss finite, K1 and K1-bwd
-     launched twice per step and held to their plain versions on a step's
-     own inputs; ms per step, peak memory; the same step with LOSS_W_3D 0
-     (the recipe's 2D-only pretrain): once per step;
- 26. the weak step with every loss at full width (the default
-     loss_functions, iou and segmentation; 64 x 64 per-GT masks filled from
-     the GT boxes), checked as 25; one more step under the profiler with
-     the new losses' plain ops (the z search, the lattice median, the
-     quantiles, the soft hull) in ranges: each one's device time, and each
-     timed alone on that step's inputs (CUDA events), peak memory;
- 27. the small float32 supervised and all-loss steps on the card against
-     the CPU with injected anchor labels and RoIs (tests/torch_train_check.py);
- 28. the published recipe through the train CLI at full width on 50
-     synthetic scenes: configs/Base_Omni3D_2D_only.yaml for 4 iterations (K1
-     and K1-bwd once per step, no Cube/ key), then configs/Omni_combined.yaml
-     warm-started from its model_final by MODEL.WEIGHTS_PRETRAIN for 4
-     (twice per step); steps/s of each;
- 29. (after 9) the recipe's ground pseudo-GT pipeline from phase 8's depth
-     maps (re-generated if gone): (a) depth-ransac ground maps on the card
-     (data/generate_ground_segmentations.py), their IoU with each scene's
-     true ground (ops/boxes.py::mask_iou), and the same on the scenes'
-     analytic depth; card vs CPU
-     on 4 maps with the same injected draws (equal masks); (b) the
-     foundation method at full width with random weights (GroundingDINO
-     Swin-T OGC: BERT-base, 6 + 6 layers, 900 queries, 768 px; SAM-HQ
-     vit_l at 1024 px; bf16; box_threshold -1): every .npz a bool map of
-     the image's shape, the CSV written; ms per image of each model and of
-     the path, peak memory, one image under the profiler; (c) small float32
-     GroundingDINO (1 + 2 layers, 16 queries, 112 px) and SAM vit_tiny (256
-     px), card vs CPU within 1e-3 of scale, the same top-k proposals; (d)
-     filter_ground, the priors CLI, the dataset loader (ground_image_path
-     only outside no_ground_idx.csv) and one mapper batch with finite
-     cached ground normals from the written maps;
- 30. (after 25) the backbone sweep: configs/cubercnn_ResNet34_FPN.yaml,
-     cubercnn_shufflenet_FPN.yaml, cubercnn_mnasnet_FPN.yaml and
-     cubercnn_densenet_FPN.yaml at full width (RCNN3D + ROIHeads3D, 38
-     classes, bf16, 512 px, random weights from seed 0), the card freed
-     between configs: (a) detection at b8, median of 3 forwards after a
-     warm-up, device time under the profiler, K1 twice per forward and held
-     to its plain version on a forward's own pyramid and boxes; (b) the
-     supervised step at b25 as phase 25, K1 and K1-bwd 2 + 2 per step and
-     held to their plain versions; ms per step, images/s, peak memory; (c)
-     the small float32 supervised step of ResNet-18 (tiny_cfg(128)) with
-     SOLVER.TYPE adam+amsgrad, card vs CPU as phase 27, the parameters after
-     the update held to the same Adam update applied on the CPU to the
-     card's gradients; (d) the ResNet-34
-     model written as a released detectron2 .pth (fc1 columns in (C, 7, 7)
-     order) and loaded through MODEL.WEIGHTS into a fresh model: the same
-     tensors and detections;
- 31. (after 17-18) the ops layer's last public functions, on the card and on
-     the CPU: convert_3d_box_to_2d and get_cuboid_verts on phase 4's b8
-     detections (800 cubes, K per image) and on the GT cubes of
-     tiny_batch(25, 512, 512, G=16), as they are and 4 m nearer (in front
-     of, straddling and behind the camera); R_to_allocentric at each cube's
-     projected centre, round-tripped through R_from_allocentric;
-     matrix_to_rotation_6d and matrix_to_quaternion on the poses,
-     round-tripped; mask_iou of phase 29's 64 depth-ransac ground maps
-     (K2's and the analytic depth's) against the scenes' true ground; uniform_topk_mask on the card's generator (its
-     count, validity and seed); card vs CPU within 1e-5 of scale, equal
-     flags and masks; each function's median ms of 5 calls;
- 32. (after 3b-3c) the NMS kernel (csrc/nms.cu) at the cells' shapes: the
-     RPN's 125 x 2000 (b25 x 5 levels, p5 / p6 padded) and 40 x 1000, and
-     the box NMS's 8 x 1024 with 38 classes through batched_nms_mask,
-     boxes drawn as near-duplicates with bf16-tied scores
-     (tests/torch_nms_boxes.py): the keep mask held bit for bit to the plain
-     fixed point on the same CUDA tensors; the kernel's device time per
-     launch and the whole nms_mask call's (rank sort + kernel), beside the
-     byte bound, the plain version (its passes and syncs included) and, where
-     torchvision is installed, torchvision.ops.batched_nms as a yardstick;
- 33. (after 32) BatchNorm's training kernels (csrc/batch_norm.cu) on the 39
-     BatchNorm calls of the b25 step at 512 px (DLA-34; 37 with a gradient,
-     2 without): y and dx against the plain chain on the same tensors, the
-     kernels' device ms forward and backward beside the least bytes the
-     function needs (x read and y written forward; g and x read and dx
-     written backward) and the bytes of their two-read design, the plain
-     chain's and F.batch_norm's (a yardstick) forward + backward, and the
-     launches a call of each path;
- 14. print the kernels line (K1, K1-bwd, K2, NMS, BN; their launches on every path
-     above, NMS's on phase 4's detection forwards and phase 12's training
-     steps, BN's on phase 33 and phase 12's training steps, each counted
-     from 0 before it) and, last,
-     {"ok": true, "device": {...}}.
+ 14. print the kernels line (K1, K1-bwd, K2, NMS, BN: their launches on every
+     path above, each counted from 0 before it, their largest errors, device
+     ms and bounds) and, last, {"ok": true, "device": {...}}.
 
 The CLI phases before 24 run one process (TPU.MESH_SHAPE [1]), so that the
 script does the same on a machine with several cards.
@@ -225,16 +222,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the benchmark's frozen yardstick, harness/bounds.py and k2_bound.py, is
+# imported as `harness` from here, as benchmark/run.py does
+BENCH_DIR = os.path.join(HERE, "benchmark")
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores (K1's arithmetic is float32 FMA on the CUDA
-# cores), dense bf16 FLOP/s on the tensor cores (K2's products)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-# SFU exponentials per second: 16 ex2 per clock per SM, 132 SMs, 1.98 GHz
-# boost (H100 SXM)
-PEAK_EX2_PER_S = 16 * 132 * 1.98e9
 K1_REPLACES = "weakcube_tpu/ops/roi_align_pallas.py:198"
 K1_SOURCE = "weakcube_tpu_torch/csrc/roi_align.cu"
 K1_BWD_REPLACES = "weakcube_tpu/ops/roi_align.py:403"
@@ -252,21 +243,6 @@ TRAIN_BATCH, TRAIN_SIZE, TRAIN_GT, TRAIN_STEPS = 25, 512, 16, 5
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def timed_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device ms per call over `iters` calls, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def kernel_device_ms(fn, iters: int, sleep_cycles: int = 20_000_000) -> float:
@@ -295,114 +271,20 @@ def kernel_device_ms(fn, iters: int, sleep_cycles: int = 20_000_000) -> float:
     return ev[1].elapsed_time(ev[2]) / iters
 
 
-def roi_align_bound(levels, boxes, strides, out_size: int, sr: int):
-    """Least time for one pooler call, against its float32 operations (per
-    output value: sr^2 samples x 4 corners x multiply-add, one divide), in
-    two byte counts over HBM bandwidth: the whole pyramid read once (the
-    figure of earlier runs), and the pixels these boxes touch (their union
-    per image and level, counted on the device) read once; both with the
-    boxes read and the output written once. Also returns the bytes that
-    K1's staging moves from L2 into shared memory (each RoI's window once)."""
-    from weakcube_tpu_torch.ops.roi_align_cuda import footprint
-    fp = footprint(levels, boxes, strides, out_size, sr)
-    elt = levels[0].element_size()
-    n_out = fp["out_bytes"] // elt
-    t_ops = n_out * (sr * sr * 4 * 2 + 1) / PEAK_F32_FLOPS
-    rest = boxes.numel() * 4 + fp["out_bytes"]
-    out = {}
-    for name, nbytes in (("whole", sum(f.numel() for f in levels) * elt + rest),
-                         ("touched", fp["touched_bytes"] + rest)):
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        out[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-    out["staged_bytes"], out["touched_bytes"] = fp["staged_bytes"], fp["touched_bytes"]
-    return out
+def k1_bound_ms(levels, boxes, strides, out_size: int, sr: int) -> float:
+    """The benchmark's least time of one K1 call (harness/bounds.py), in ms."""
+    from harness import bounds
+    return 1e3 * bounds.roi_align_bound_s([tuple(f.shape) for f in levels],
+                                          levels[0].element_size(), boxes, strides, out_size, sr)
 
 
-def attention_bound(q):
-    """Least time for one attention call on (B, H, N, d) q, k, v: the two
-    products (4 B H N^2 d FLOPs) on the bf16 tensor cores against q, k, v
-    read once and o written once. Also returns the exponentials it takes
-    (B H N^2) and their least time on the SFU, which runs beside the
-    tensor cores."""
-    B, H, N, d = q.shape
-    flops = 4 * B * H * N * N * d
-    nbytes = 4 * q.numel() * q.element_size()
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    n_exp = B * H * N * N
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes, n_exp, n_exp / PEAK_EX2_PER_S * 1e3)
-
-
-def library_roi_align(levels, boxes, strides, out_size: int, sr: int):
-    """Yardstick the port never calls: per-level F.grid_sample (bilinear,
-    border padding, align_corners=True, i.e. samples clamped to
-    [0, size - 1]) + the sr x sr mean. The per-level sample grids are made
-    beforehand (every RoI at every level, masked to its own level), so the
-    returned closure times the library sampling and the mean only."""
+def k1_bwd_bound_ms(shapes, dtype, boxes, strides, out_size: int, sr: int) -> float:
+    """The benchmark's least time of one K1-bwd call (harness/bounds.py), in
+    ms: g read, the boxes read and every level's gradient written once."""
     import torch
-    import torch.nn.functional as F
-    from weakcube_tpu_torch.ops.roi_align import assign_fpn_levels
-    B, R = boxes.shape[:2]
-    P = out_size * sr
-    lvl = assign_fpn_levels(boxes, 2, 1 + len(levels)) - 2
-    grid = (torch.arange(P, device=boxes.device, dtype=torch.float32) + 0.5) / P
-    inputs = []
-    for l, (f, s) in enumerate(zip(levels, strides)):
-        H, W = f.shape[1:3]
-        b = boxes / s - 0.5
-        rw = (b[..., 2] - b[..., 0]).clamp(min=1e-6)
-        rh = (b[..., 3] - b[..., 1]).clamp(min=1e-6)
-        gx = (b[..., 0, None] + rw[..., None] * grid) * (2.0 / max(W - 1, 1)) - 1.0
-        gy = (b[..., 1, None] + rh[..., None] * grid) * (2.0 / max(H - 1, 1)) - 1.0
-        g = torch.stack([gx[:, :, None, :].expand(B, R, P, P),
-                         gy[:, :, :, None].expand(B, R, P, P)], -1)
-        inputs.append((f.permute(0, 3, 1, 2), g.reshape(B, R * P, P, 2).to(f.dtype),
-                       (lvl == l)[:, :, None, None, None]))
-
-    def run():
-        out = None
-        for x, g, m in inputs:
-            s = F.grid_sample(x, g, mode="bilinear", padding_mode="border",
-                              align_corners=True)            # (B, C, R*P, P)
-            s = s.reshape(B, -1, R, out_size, sr, out_size, sr).mean(dim=(4, 6))
-            s = s.permute(0, 2, 3, 4, 1)                     # (B, R, 7, 7, C)
-            out = torch.where(m, s, out) if out is not None else torch.where(m, s, 0)
-        return out
-    return run
-
-
-def roi_align_bwd_bound(shapes, dtype, boxes, strides, out_size: int, sr: int):
-    """Least time for one K1-bwd call, the function's own: g read once, the
-    boxes read once and every level's gradient written once in the level
-    dtype, against the float32 operations of the scatter (per g value:
-    sr^2 samples x 4 corners x multiply-add). Also returns the floor of this
-    implementation's bytes (`impl_floor_ms`): the tile gather reads the g
-    of each RoI once per (RoI, tile) pair that footprint counts (from L2
-    where neighbouring tiles share a RoI, counted here as if from HBM) and
-    writes every level's gradient once.
-    Returns (ms, "bytes" or "operations", bytes, impl_floor_ms, impl_bytes)."""
-    import torch
-    from weakcube_tpu_torch.ops.roi_align_cuda import footprint
-    metas = [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
-    fp = footprint(metas, boxes, strides, out_size, sr)
-    elt = metas[0].element_size()
-    n_level = sum(m.numel() for m in metas)
-    nbytes = fp["out_bytes"] + boxes.numel() * 4 + n_level * elt
-    impl = fp["tile_g_bytes"] + boxes.numel() * 4 + n_level * elt
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = fp["out_bytes"] // elt * sr * sr * 4 * 2 / PEAK_F32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
-            max(impl / PEAK_BYTES_PER_S, t_ops) * 1e3, impl)
-
-
-def library_roi_align_backward(levels, boxes, strides, out_size: int, sr: int, g):
-    """Yardstick the port never calls: the autograd backward of
-    library_roi_align (F.grid_sample + the sr x sr mean) for cotangent g;
-    the forward runs once beforehand, the closure times the backward."""
-    import torch
-    lv = [f.detach().requires_grad_() for f in levels]
-    out = library_roi_align(lv, boxes, strides, out_size, sr)()
-    return lambda: torch.autograd.grad(out, lv, g, retain_graph=True)
+    from harness import bounds
+    elt = torch.empty((), dtype=dtype).element_size()
+    return 1e3 * bounds.roi_align_bwd_bound_s(shapes, elt, boxes, strides, out_size, sr)
 
 
 def check_close(name, got, want, atol, rtol):
@@ -435,64 +317,42 @@ def match_detections(a, b, i):
     return torch.tensor(j, dtype=torch.long)
 
 
-def profile_forward(model, batch, top: int = 12, report: dict = None):
-    """torch.profiler over one forward: the device's busy share of the
-    forward's wall time and the kernels that take most of it. Returns the
-    number of layout-copy kernels launched (PyTorch's `direct_copy_kernel`,
-    which `.contiguous()` and copying reshapes run; None where the profiler
-    saw no device time). report, where given, gets busy_ms, wall_ms and
-    launches."""
+def layout_copies(fn, arg):
+    """The layout-copy kernels (PyTorch's `direct_copy_kernel`, which
+    `.contiguous()` and copying reshapes run) that one call of fn(arg)
+    launches, counted under torch.profiler; None where the profiler saw no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        model(batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us == 0:
-        print("[profile] the profiler recorded no device time: busy share not measured")
-        return None
-    copies = [e for e in kernels if "direct_copy_kernel" in e.key]
-    n_copies = sum(e.count for e in copies)
-    if report is not None:
-        report.update(busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
-                      launches=sum(e.count for e in kernels))
-    print(f"[profile] one forward under the profiler: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), idle "
-          f"{100 * (1 - busy_us / wall_us):.1f}%, {sum(e.count for e in kernels)} kernel launches, "
-          f"{n_copies} of them layout copies ({sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / busy_us:5.1f}%"
-              f" x{e.count:<5d} {e.key[:110]}")
-    return n_copies
-
-
-def profile_ops(fn, arg, top: int = 14):
-    """profile_forward's kernel table for one call of fn(arg), then the
-    operators (aten::...) that launched the most device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    profile_forward(fn, arg, top=top)
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
                                                      ProfilerActivity.CUDA]) as prof:
         fn(arg)
         torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in ops)
-    if total == 0:
-        print("[profile] no operator recorded device time")
-        return
-    print(f"[profile] the operators by the device time of the kernels they launched "
-          f"({total / 1e3:.3f} ms):")
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / total:5.1f}%"
-              f" x{e.count:<5d} {e.key}")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kernels:
+        print("[profile] the profiler recorded no device time: layout copies not counted")
+        return None
+    return sum(e.count for e in kernels if "direct_copy_kernel" in e.key)
+
+
+def kernels_launched(call, n: int = 5) -> list:
+    """The names (template arguments cut) of the kernels that n calls of
+    call() launch under torch.profiler, after one call outside it; empty
+    where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return sorted({e.key.removeprefix("void ").split("<")[0].split("(")[0]
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0})
+
 
 def check_grads(name, got, want, atol, rtol):
     """check_close over the per-level gradients of K1-bwd, laid end to end."""
@@ -554,13 +414,14 @@ def large_boxes(B, R, size, gen, device):
 
 def depth_phases(dev, artifacts_root):
     """Phases 7-9: K2 against its plain version, the depth pseudo-GT path at
-    full width, the small depth model card vs CPU, timings. Returns K2's
+    full width, the small depth model card vs CPU, K2's device time and the
+    depth forward's layout copies. Returns K2's
     entry of the kernels line and phase 8's run (its records, the
     artifacts_root/depth_maps it wrote, K2's launches), which phase 29
     continues from."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
+    from harness import k2_bound
     from weakcube_tpu_torch.data import synthetic
     from weakcube_tpu_torch.data.generate_depth_maps import generate, load_model
     from weakcube_tpu_torch.ops import flash_attention_cuda, roi_align_cuda
@@ -611,12 +472,9 @@ def depth_phases(dev, artifacts_root):
     records = synthetic.make_dataset(DEPTH_IMAGES)
     out_dir = os.path.join(artifacts_root, "depth_maps")
     roi_align_cuda.multilevel_roi_align.launches = K2.launches = 0
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     generate(records, out_dir, batch_size=DEPTH_BATCH,
              image_loader=lambda r: synthetic.render_image(r["_scene"]), model=model)
     torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t
     k2_launches = K2.launches
     hook.remove()
     n_fwd = -(-DEPTH_IMAGES // DEPTH_BATCH)
@@ -640,10 +498,8 @@ def depth_phases(dev, artifacts_root):
     if min(stds) <= 1e-3:
         fail(f"degenerate depth maps (least std {min(stds):.2e} m)")
     print(f"[depth] generate(): {len(records)} maps of {records[0]['height']}x"
-          f"{records[0]['width']} float16 in {gen_s:.3f} s ({len(records) / gen_s:.2f} "
-          f"images/s end to end, synthetic rendering and npz writes included); depth std "
-          f"{min(stds):.4f}-{max(stds):.4f} m; K2 launches {k2_launches} "
-          f"({depth_blocks} per forward)")
+          f"{records[0]['width']} float16; depth std {min(stds):.4f}-{max(stds):.4f} m; K2 "
+          f"launches {k2_launches} ({depth_blocks} per forward)")
     B_, N_, _ = captured[0].shape
     views = captured[0].reshape(B_, N_, 3, attn.heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
     q, k, v = (t.contiguous() for t in views)
@@ -671,54 +527,24 @@ def depth_phases(dev, artifacts_root):
         print(f"[reference] small float32 ViT-S at {size} px (N = {(size // 14) ** 2 + 1}), "
               f"card vs CPU: max |err| {err:.3e} m (atol 1e-3)")
 
-    # -- 9. timing ------------------------------------------------------------
+    # -- 9. K2's device time; the depth forward's layout copies ---------------
+    ms = kernel_device_ms(lambda: K2(q, k, v, scale), 20)
+    views_ms = kernel_device_ms(lambda: K2(*views, scale), 20)
+    bound = 1e3 * k2_bound.flash_attention_bound_s(*q.shape, q.element_size())
+    print(f"[timing] K2 at {tuple(q.shape)} {q.dtype}: {ms:.4f} ms of device time per launch on "
+          f"contiguous q, k, v, {views_ms:.4f} ms on the projection's views (20 launches queued "
+          f"behind a sleep kernel); bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it)")
     batch = torch.randn((DEPTH_BATCH, DEPTH_SIZE, DEPTH_SIZE, 3), generator=gen, device=dev)
-    times = []
-    with torch.inference_mode():
-        for _ in range(4):  # one warm-up + 3 timed
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            model(batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-    fwd_ms = statistics.median(times[1:])
-    print(f"[timing] depth forward B{DEPTH_BATCH} @ {DEPTH_SIZE} px: median {fwd_ms:.3f} ms "
-          f"over {len(times) - 1} (each {', '.join(f'{x:.3f}' for x in times)} ms, first is "
-          f"the warm-up), {DEPTH_BATCH * 1e3 / fwd_ms:.2f} images/s")
-    # K2 and the library call in turns (the card's clock drifts within a run),
-    # five rounds of 20 launches each; the medians are reported
-    calls = {"K2": lambda: K2(q, k, v, scale), "K2 views": lambda: K2(*views, scale),
-             "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)}
-    rounds = {name: [] for name in calls}
-    for r in range(5):
-        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
-            rounds[name].append(timed_ms(calls[name], 20))
-    ms, views_ms, lib_ms = (statistics.median(rounds[n]) for n in calls)
-    print("[timing] rounds (ms per launch): " + "; ".join(
-        f"{n} {' '.join(f'{x:.4f}' for x in v)}" for n, v in rounds.items()))
-    plain_ms = timed_ms(lambda: plain(q, k, v, scale), 3, warmup=1)
-    lib_err = (F.scaled_dot_product_attention(q, k, v, scale=scale).float()
-               - plain(q, k, v, scale).float()).abs().max().item()
-    bound, by, flops, nbytes, n_exp, sfu_ms = attention_bound(q)
-    print(f"[timing] K2 at {tuple(q.shape)} {q.dtype}: {ms:.4f} ms per launch on contiguous "
-          f"q, k, v, {views_ms:.4f} ms on the projection's views (medians; bound {bound:.4f} ms by {by}: "
-          f"{flops:.3e} FLOP, {nbytes:.3e} bytes; {100 * bound / ms:.1f}% of the bound; beside "
-          f"it {n_exp:.3e} exponentials, {sfu_ms:.4f} ms on the SFU), {flops / ms / 1e9:.1f} "
-          f"TFLOP/s; plain {plain_ms:.3f} ms; library (F.scaled_dot_product_attention, a "
-          f"yardstick the port never calls) {lib_ms:.4f} ms (median), max |err| vs plain "
-          f"{lib_err:.3e}")
-    print(f"[timing] K2 per depth forward: {depth_blocks} launches, "
-          f"{depth_blocks * views_ms:.3f} ms of the {fwd_ms:.3f} ms forward "
-          f"(bound {depth_blocks * bound:.3f} ms)")
-    n_copies = profile_forward(model, batch)
+    n_copies = layout_copies(model, batch)
     if n_copies is not None and n_copies > 28:
         fail(f"the depth forward launched {n_copies} layout copies, expected at most 28 "
              "(no q, k, v or output copies around K2)")
+    print(f"[depth] one B{DEPTH_BATCH} forward launches {n_copies} layout copies (at most 28)")
     return ({"name": "flash_attention (non-causal attention fwd), per launch at "
                      f"{'x'.join(map(str, q.shape))} {str(q.dtype)[6:]}",
              "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-             "launches": k2_launches, "max_abs_err": max(errs), "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms},
+             "launches": k2_launches, "max_abs_err": max(errs), "ms": ms, "views_ms": views_ms,
+             "bound_ms": bound},
             {"records": records, "depth_dir": out_dir, "k2_launches": k2_launches})
 
 
@@ -753,7 +579,7 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
     ground maps on the card, their IoU with the scenes' true ground, card vs
     CPU on 4 maps with the same draws; (b) foundation maps at full width
     (GroundingDINO Swin-T OGC at 768 px, SAM-HQ vit_l at 1024 px, bf16,
-    random weights from seeds), timed, peak memory, one image profiled; (c)
+    random weights from seeds), timed, peak memory; (c)
     small float32 GroundingDINO and SAM, card vs CPU; (d) filter_ground,
     the priors CLI, the dataset loader and one mapper batch on the maps.
     Returns K2's launches on this path, and for phase 31 the depth-ransac
@@ -766,7 +592,6 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
     from weakcube_tpu_torch.data import generate_ground_segmentations as ggs
     from weakcube_tpu_torch.data.build import build_train_batches
     from weakcube_tpu_torch.data.generate_depth_maps import generate as generate_depth
-    from weakcube_tpu_torch.data.generate_depth_maps import load_model
     from weakcube_tpu_torch.data.pseudo_gt import grounding_dino as gd
     from weakcube_tpu_torch.data.pseudo_gt import sam as sam_mod
     from weakcube_tpu_torch.entry import flagship_cfg
@@ -884,6 +709,7 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
             len(res_f["sam_ms"]) != len(records):
         fail(f"foundation: {n_maps} maps, {n_csv} CSV lines, {len(res_f['sam_ms'])} SAM calls "
              f"for {len(records)} records")
+    # timed until a cell measures this pipeline (ROADMAP.md F6)
     g_ms, s_ms, i_ms = (statistics.median(res_f[k][1:]) for k in ("gdino_ms", "sam_ms", "image_ms"))
     print(f"[pgt] {card}: foundation (box_threshold -1: every image reaches SAM) on "
           f"{len(records)} {records[0]['width']}x{records[0]['height']} images: {n_maps} maps, "
@@ -892,8 +718,6 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
           f"{sam_mod.IMG_SIZE} px {s_ms:.3f} ms, the whole path {i_ms:.3f} ms (host resizes "
           f"and the npz write included; first image {res_f['image_ms'][0]:.1f} ms); peak "
           f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the models)")
-    profile_ops(lambda img: ggs.foundation_ground_mask(gdino, sam, img, -1.0, PGT_GDINO_SIDE),
-                load(records[0]))
     del gdino, sam
     torch.cuda.empty_cache()
 
@@ -1132,12 +956,10 @@ def train_phases(dev, bn_per_step: int):
     import torch
     from weakcube_tpu_torch.entry import dims_priors, flagship_cfg, tiny_batch
     from weakcube_tpu_torch.models.rcnn3d import build_model
-    from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
     from weakcube_tpu_torch.ops import batch_norm_cuda as bnc
     from weakcube_tpu_torch.ops import nms as nms_ops
     from weakcube_tpu_torch.ops import roi_align_cuda
     from weakcube_tpu_torch.parallel.train_step import create_train_state, train_step
-    from weakcube_tpu_torch.tools.bench_k1_bwd import kernels_of
     from torch_train_check import train_step_card_vs_cpu
 
     K1, bwd = roi_align_cuda.multilevel_roi_align, roi_align_cuda.roi_align_backward
@@ -1167,18 +989,15 @@ def train_phases(dev, bn_per_step: int):
           f"{cfg.SOLVER.BASE_LR} (warmup factor {cfg.SOLVER.WARMUP_FACTOR} over "
           f"{cfg.SOLVER.WARMUP_ITERS}), batch {TRAIN_BATCH} x {TRAIN_SIZE} px, {TRAIN_GT} GT "
           f"rows, built in {time.time() - t:.1f} s")
-    n_steps = 1 + TRAIN_STEPS  # one warm-up + the timed steps
+    n_steps = 1 + TRAIN_STEPS
     torch.cuda.reset_peak_memory_stats()
     K1.launches = bwd.launches = nms_ops.nms_mask.launches = 0
     bnc.batch_norm_train.launches = bnc.batch_norm_train_backward.launches = 0
-    times, all_logs = [], []
+    all_logs = []
     for _ in range(n_steps):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         state, logs = train_step(model, opt, state, batch, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
         all_logs.append(logs)
+    torch.cuda.synchronize()
     k1_launches, bwd_launches = K1.launches, bwd.launches
     nms_launches = nms_ops.nms_mask.launches
     bn_launches = bnc.batch_norm_train.launches + bnc.batch_norm_train_backward.launches
@@ -1201,7 +1020,6 @@ def train_phases(dev, bn_per_step: int):
              f"({bnc.batch_norm_train.launches} forward, "
              f"{bnc.batch_norm_train_backward.launches} backward), expected {bn_per_step} per "
              "step (4 a layer with a gradient, 2 without)")
-    ms = statistics.median(times[1:])
     print(f"[train] {n_steps} steps: applied {state.applied}, skipped {state.skipped}; every "
           f"loss finite; K1 launches {k1_launches}, K1-bwd launches {bwd_launches} (2 + 2 per "
           f"step), NMS launches {nms_launches} (1 per step), BatchNorm kernel launches "
@@ -1211,16 +1029,10 @@ def train_phases(dev, bn_per_step: int):
           f"{all_logs[0]['Cube/IoU3D']:.6f}")
     print(f"[train] losses of the last step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in all_logs[-1].items()))
-    print(f"[timing] train step b{TRAIN_BATCH} @ {TRAIN_SIZE} px bf16: median {ms:.3f} ms over "
-          f"{TRAIN_STEPS} (each {', '.join(f'{x:.3f}' for x in times)} ms, first is the "
-          f"warm-up; spread {min(times[1:]):.3f}-{max(times[1:]):.3f} ms), "
-          f"{TRAIN_BATCH * 1e3 / ms:.2f} images/s")
 
-    # one more step under the profiler, then one whose two K1 calls (pyramid
-    # and boxes) and two K1-bwd calls (g and boxes) are kept, to hold both
-    # kernels to their plain versions on the step's own inputs and to time
-    # K1-bwd on them
-    profile_step(lambda: train_step(model, opt, state, batch, gen))
+    # one more step whose two K1 calls (pyramid and boxes) and two K1-bwd
+    # calls (g and boxes) are kept, to hold both kernels to their plain
+    # versions on the step's own inputs and to time K1-bwd on them
     fwd_calls, bwd_calls = with_pooler_calls_kept(lambda: train_step(model, opt, state, batch,
                                                                     gen))
 
@@ -1229,88 +1041,33 @@ def train_phases(dev, bn_per_step: int):
           f"gradients (b{TRAIN_BATCH} @ {TRAIN_SIZE} px)")
     errs = check_pooler_calls(fwd_calls, bwd_calls)
 
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "impl_ms": 0.0}
-    bound_by = None
-    for name, (levels, _, _), (g, boxes, args) in zip(("box pooler", "cube pooler"), fwd_calls,
-                                                       bwd_calls):
+    tot = {"ms": 0.0, "bound_ms": 0.0}
+    for name, (g, boxes, args) in zip(("box pooler", "cube pooler"), bwd_calls):
         shapes, dt, strides, out_size, sr = args[0], args[1], args[2], args[3], args[4]
-        call = lambda: bwd(g, boxes, *args)
-        lib = library_roi_align_backward(levels, boxes, strides, out_size, sr, g)
-        turns = {"K1-bwd": (call, 20), "library": (lib, 3)}
-        rounds = {k: [] for k in turns}
-        for r in range(5):
-            for k in (list(turns) if r % 2 == 0 else list(turns)[::-1]):
-                rounds[k].append(timed_ms(turns[k][0], turns[k][1], warmup=1))
-        ev_ms, lib_ms = statistics.median(rounds["K1-bwd"]), statistics.median(rounds["library"])
-        dev_ms = kernel_device_ms(call, 20)
-        plain_ms = timed_ms(lambda: roi_align_cuda.plain_backward(
-            g, boxes, shapes, [dt] * len(shapes), strides, out_size, sr), 2, warmup=1)
-        bound, by, nbytes, impl_ms, impl_bytes = roi_align_bwd_bound(shapes, dt, boxes, strides,
-                                                                     out_size, sr)
-        bound_by = bound_by or by
-        for k, x in (("ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", bound),
-                     ("library_ms", lib_ms), ("impl_ms", impl_ms)):
-            tot[k] += x
-        print(f"[timing] K1-bwd {name} R={boxes.shape[1]} {str(dt)[6:]}: {dev_ms:.4f} ms of "
-              f"device time per call (20 calls queued behind a sleep kernel); {ev_ms:.4f} ms per "
-              f"call by CUDA events (median; rounds "
-              f"{' '.join(f'{x:.4f}' for x in rounds['K1-bwd'])}); bound {bound:.4f} ms by {by} "
-              f"(g read and the level gradients written once, {nbytes:.4e} B; "
-              f"{100 * bound / dev_ms:.1f}% of it); the tile gather's floor {impl_ms:.4f} ms "
-              f"(g read once per (RoI, tile) pair, {impl_bytes:.4e} B; "
-              f"{100 * impl_ms / dev_ms:.1f}% of it); plain {plain_ms:.3f} ms; library (autograd "
-              f"of F.grid_sample + mean) {lib_ms:.3f} ms (median; rounds "
-              f"{' '.join(f'{x:.3f}' for x in rounds['library'])})")
-        split = kernels_of(call)
-        if not split:
+        call = lambda: bwd(g, boxes, *args)  # noqa: E731
+        ms = kernel_device_ms(call, 20)
+        bound = k1_bwd_bound_ms(shapes, dt, boxes, strides, out_size, sr)
+        tot["ms"] += ms
+        tot["bound_ms"] += bound
+        print(f"[timing] K1-bwd {name} R={boxes.shape[1]} {str(dt)[6:]}: {ms:.4f} ms of device "
+              f"time per call (20 calls queued behind a sleep kernel); bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}% of it)")
+        launched = kernels_launched(call)
+        if not launched:
             print(f"[profile] K1-bwd {name}: the profiler recorded no device time: the kernels a "
-                  "call launches not measured")
-        elif [k.split("<")[0] for k, _, _ in split] != ["roi_align_bwd_kernel"]:
-            fail(f"K1-bwd {name}: calls launched {split}, expected roi_align_bwd_kernel and "
+                  "call launches not checked")
+        elif launched != ["roi_align_bwd_kernel"]:
+            fail(f"K1-bwd {name}: calls launched {launched}, expected roi_align_bwd_kernel and "
                  "nothing else (no zero fill, no cast)")
         else:
-            print(f"[profile] K1-bwd {name}: calls launch roi_align_bwd_kernel and nothing else "
-                  f"({split[0][1]:.1f} launches per call recorded, {split[0][2]:.4f} ms of "
-                  "device time each)")
+            print(f"[profile] K1-bwd {name}: calls launch roi_align_bwd_kernel and nothing else")
     print(f"[timing] K1-bwd per step (box + cube pooler): {tot['ms']:.4f} ms of device time, "
-          f"bound {tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}% of it), the "
-          f"tile gather's floor {tot['impl_ms']:.4f} ms, of a {ms:.3f} ms step")
+          f"bound {tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}% of it)")
     return {"name": "roi_align_backward (ROIAlignV2 feature gradient), box + cube pooler per "
                     "training step",
             "route": "cuda", "source": K1_SOURCE, "replaces": K1_BWD_REPLACES,
-            "launches": bwd_launches, "max_abs_err": errs["K1-bwd"], "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": bound_by,
-            "library_ms": tot["library_ms"]}, errs["K1"], nms_launches, bn_launches
-
-
-def profile_step(step, top: int = 14):
-    """torch.profiler over one training step: the device's busy share of its
-    wall time, its kernel launches, the kernels that take most of it, and
-    K1's and K1-bwd's launches in it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us == 0:
-        print("[profile] the profiler recorded no device time: busy share not measured")
-        return
-    n = {name: sum(e.count for e in kernels if e.key.startswith(name + "<") or
-                   e.key.startswith("void " + name + "<"))
-         for name in ("roi_align_kernel", "roi_align_bwd_kernel")}
-    print(f"[profile] one training step under the profiler: wall {wall_us / 1e3:.3f} ms, device "
-          f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), idle "
-          f"{100 * (1 - busy_us / wall_us):.1f}%, {sum(e.count for e in kernels)} kernel "
-          f"launches; K1 {n['roi_align_kernel']}, K1-bwd {n['roi_align_bwd_kernel']} launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / busy_us:5.1f}%"
-              f" x{e.count:<5d} {e.key[:110]}")
+            "launches": bwd_launches, "max_abs_err": errs["K1-bwd"], **tot}, \
+        errs["K1"], nms_launches, bn_launches
 
 
 def k1_stress(dev, rounds: int = 50):
@@ -1355,23 +1112,49 @@ def k1_stress(dev, rounds: int = 50):
     return n
 
 
+def k1_staged_lines(box, stride: float, H: int, W: int, out_size: int = 7, sr: int = 2):
+    """The lines (rows, columns) K1's staging plan moves for one RoI on its
+    level: per axis, the compact run from its lowest to its highest touched
+    line where that run holds at most 2P lines (P = out_size * sr) and no
+    bin spans more than 2 * sr of them, else the 2P touched lines."""
+    import numpy as np
+    P = out_size * sr
+    grid = (np.arange(P, dtype=np.float32) + np.float32(0.5)) / np.float32(P)
+    scale = np.float32(1.0 / stride)
+
+    def lines(a0, a1, size):
+        c0 = np.float32(a0) * scale - np.float32(0.5)
+        ln = max(np.float32(a1) * scale - np.float32(0.5) - c0, np.float32(1e-6))
+        c = np.minimum(np.maximum(c0 + ln * grid, 0), size - 1)
+        lo = np.floor(c).astype(np.int64)
+        hi = np.minimum(lo + 1, size - 1)
+        run = int(hi[-1] - lo[0] + 1)
+        band = hi[sr - 1::sr] - lo[::sr] + 1
+        return run if run <= 2 * P and (band <= 2 * sr).all() else 2 * P
+    x0, y0, x1, y1 = (float(v) for v in box)
+    return lines(y0, y1, H), lines(x0, x1, W)
+
+
 def k1_mismatch_report(feats, boxes, got, want, first, bad, sms, seed, dt, launch):
-    """Print where K1 first disagrees: the RoI, its level, the persistent
-    block that took it (RoI index mod the grid; the grid is SMs x the blocks
-    that fit an SM by shared memory, an estimate of the kernel's occupancy
-    query) and the channel chunk of the staging plan; then fail."""
+    """Print where K1 first disagrees: the RoI, its level and staged lines,
+    the persistent block that took it (RoI index mod the grid; the grid is
+    SMs x the blocks that fit an SM by shared memory, an estimate of the
+    kernel's occupancy query) and the channel chunk of the staging plan;
+    then fail."""
     import torch
     from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
-    from weakcube_tpu_torch.ops import roi_align_cuda
+    from weakcube_tpu_torch.ops.roi_align import assign_fpn_levels
     b, r, i, j, c = [int(x) for x in bad.nonzero()[0]]
     R, C = boxes.shape[1], feats[0].shape[-1]
-    fp = roi_align_cuda.footprint(feats, boxes, FPN_STRIDES, 7, 2)
+    level = int(assign_fpn_levels(boxes[b, r].float().cpu(), 2, 1 + len(feats)))
+    H, W = feats[level - 2].shape[1:3]
+    ny, nx = k1_staged_lines(boxes[b, r].tolist(), FPN_STRIDES[level - 2], H, W)
     V = 4 if dt == torch.float32 else 8
     P, VB = 14, 16
     stage = max(4 * P * P * V * feats[0].element_size(), 24 * 1024)
     stage = (stage + 127) // 128 * 128
     per_sm = min((228 * 1024) // (2 * stage + 1024), 2048 // 128)
-    ny, nx, nvec = int(fp["ny"][b, r]), int(fp["nx"][b, r]), C // V
+    nvec = C // V
     cv = min(nvec, stage // (ny * nx * VB))
     if cv < min(nvec, 4):
         cv = min(nvec, 2 * stage // (ny * nx * VB))
@@ -1382,7 +1165,7 @@ def k1_mismatch_report(feats, boxes, got, want, first, bad, sms, seed, dt, launc
          f"disagree; first at image {b} RoI {r} (linear {roi}, box "
          f"{[round(x, 3) for x in boxes[b, r].tolist()]}), bin ({i}, {j}), channel {c}: kernel "
          f"{got[b, r, i, j, c].item()!r}, first launch {first[b, r, i, j, c].item()!r}, plain "
-         f"{want[b, r, i, j, c].item()!r}; level p{int(fp['levels'][b, r])}, staged {ny} x {nx} "
+         f"{want[b, r, i, j, c].item()!r}; level p{level}, staged {ny} x {nx} "
          f"lines, channel chunk {(c // V) // cv} of {chunks}; persistent block {roi % (sms * per_sm)}"
          f" of an estimated grid of {sms} x {per_sm}")
 
@@ -1449,7 +1232,9 @@ def cli_phases(dev, out):
     synthetic scenes into OUTPUT_DIR `out`: 6 iterations with a checkpoint
     at 4, then --resume to 8, which must start at 4 (model_recent). Checks
     K1 and K1-bwd ran twice per step, every loss finite, metrics.json and
-    the checkpoints written. Returns the numbers PERF.md keeps."""
+    the checkpoints written. Returns the numbers PERF.md keeps: the CLI's
+    steps/s and its mapper's ms per batch are the only record of the step
+    fed by the data pipeline until a cell measures it (ROADMAP.md F1)."""
     import math
     import torch
     from weakcube_tpu_torch.ops import roi_align_cuda
@@ -1546,9 +1331,9 @@ def ground_phase(dev):
     ground planes by RANSAC on the card (ground_normals_from_maps: 25
     images, 1000 hypotheses, every 5th pixel); its normals held to the SVD
     fit of the same canvases (|cos| > 0.995 where the ground mask is valid)
-    and compared with the mapper's cached normals; the fit timed (CUDA events, median of 5); K1 and
-    K1-bwd held to their plain versions on this step's pooler inputs and
-    timed on them. Returns the numbers PERF.md keeps."""
+    and compared with the mapper's cached normals; K1 and K1-bwd held to
+    their plain versions on this step's pooler inputs and timed on them.
+    Returns the numbers PERF.md keeps."""
     import numpy as np
     import torch
     from weakcube_tpu_torch.data import synthetic
@@ -1640,16 +1425,9 @@ def ground_phase(dev):
           f"{512 / 2 - float(cached['K'][0, 1, 2]):.1f} px below the principal point); the SVD "
           f"fit of the canvas's content alone to the cached normals: min "
           f"{c_content[ok].min():.6f}")
-    rounds = []
-    for _ in range(5):
-        rounds.append(timed_ms(lambda: fit(torch.Generator(device=dev).manual_seed(1),
-                                           *seen["args"], **kw), 1, warmup=1))
-    fit_ms = statistics.median(rounds)
-    print(f"[timing] ground_normals_from_maps b25: {fit_ms:.3f} ms per step (CUDA events, median "
-          f"of 5: {' '.join(f'{x:.3f}' for x in rounds)})")
 
     # K1 and K1-bwd on this step's own pooler inputs: checked and timed
-    rep = {"ransac_ms": fit_ms, "min_cos": float(c_same[ok].min()), "k1_ms": 0.0, "k1_bound_ms": 0.0,
+    rep = {"min_cos": float(c_same[ok].min()), "k1_ms": 0.0, "k1_bound_ms": 0.0,
            "bwd_ms": 0.0, "bwd_bound_ms": 0.0}
     for name, (levels, boxes, args), (g, gboxes, bargs) in zip(
             ("box pooler", "cube pooler"), *calls):
@@ -1665,15 +1443,15 @@ def ground_phase(dev):
         check_grads(f"K1-bwd {name} R={gboxes.shape[1]} on the mapper's batch",
                     bwd(g, gboxes, *bargs), gw, atol * scale, rtol)
         k1_ms = kernel_device_ms(lambda: K1(levels, boxes, strides, out_size, sr, min_level), 20)
-        k1_bound = roi_align_bound(levels, boxes, strides, out_size, sr)["touched"][0]
+        k1_bound = k1_bound_ms(levels, boxes, strides, out_size, sr)
         bwd_ms = kernel_device_ms(lambda: bwd(g, gboxes, *bargs), 20)
-        bwd_bound = roi_align_bwd_bound(shapes, dt, gboxes, strides, out_size, sr)[0]
+        bwd_bound = k1_bwd_bound_ms(shapes, dt, gboxes, strides, out_size, sr)
         for k, x in (("k1_ms", k1_ms), ("k1_bound_ms", k1_bound), ("bwd_ms", bwd_ms),
                      ("bwd_bound_ms", bwd_bound)):
             rep[k] += x
         print(f"[timing] on the mapper's batch, {name} R={boxes.shape[1]}: K1 {k1_ms:.4f} ms of "
-              f"device time (bound {k1_bound:.4f} ms over the touched pixels), K1-bwd "
-              f"{bwd_ms:.4f} ms (bound {bwd_bound:.4f} ms)")
+              f"device time (bound {k1_bound:.4f} ms), K1-bwd {bwd_ms:.4f} ms (bound "
+              f"{bwd_bound:.4f} ms)")
     print(f"[timing] per CLI step (box + cube pooler): K1 {rep['k1_ms']:.4f} ms (bound "
           f"{rep['k1_bound_ms']:.4f}), K1-bwd {rep['bwd_ms']:.4f} ms (bound "
           f"{rep['bwd_bound_ms']:.4f})")
@@ -1683,43 +1461,32 @@ def ground_phase(dev):
 def geometry_phases(dev):
     """Phases 17-18: exact IoU3D on 25 x 128 pairs and RANSAC on 25 tilted,
     noisy ground clouds with 1000 injected draws, each on the card against
-    the CPU (tests/torch_geometry_check.py) and timed on the card (CUDA
-    events, median of 5). Returns the numbers PERF.md keeps."""
-    from weakcube_tpu_torch.ops import iou3d, plane
+    the CPU (tests/torch_geometry_check.py). Returns the numbers PERF.md
+    keeps."""
     from torch_geometry_check import iou3d_card_vs_cpu, ransac_card_vs_cpu
     try:
         iou = iou3d_card_vs_cpu(dev, 25 * 128)
         ran = ransac_card_vs_cpu(dev, 25, 480, 640, 1000)
     except AssertionError as e:
         fail(str(e))
-    c1, c2 = iou.pop("inputs")
-    iou_rounds = [timed_ms(lambda: iou3d.matched_iou3d(c1, c2), 1, warmup=1) for _ in range(5)]
-    pts, valid, draws = ran.pop("inputs")
-    ran_rounds = [timed_ms(lambda: plane.ransac_plane(pts, valid, 0.05, 1000, draws=draws), 1,
-                          warmup=1) for _ in range(5)]
-    iou["ms"], ran["ms"] = statistics.median(iou_rounds), statistics.median(ran_rounds)
     print(f"[iou3d] matched_iou3d on {iou['pairs']} pairs (identical, contained, touching, "
           f"disjoint, overlapping), card vs CPU float32: max |err| {iou['max_abs_err']:.3e} "
           f"(atol 1e-5); {iou['identical_below_1']} of {iou['identical']} identical pairs read "
-          f"below 1 on both (coplanar faces, ROADMAP.md Queue C); {iou['ms']:.3f} ms on the card "
-          f"(median of 5: "
-          f"{' '.join(f'{x:.3f}' for x in iou_rounds)})")
+          f"below 1 on both (coplanar faces, ROADMAP.md Queue C)")
     print(f"[ransac] ransac_plane on {ran['images']} clouds of {ran['points']} points, 1000 "
           f"injected draws, card vs CPU: the same winner on {ran['same_winner']} images (planes "
           f"within {ran['worst_same_err']:.3e}), |cos| >= {ran['worst_cos_other']:.7f} on the "
           f"others; inlier counts within {ran['max_count_diff']} points (bound 0.1% of the valid "
-          f"points); |cos| to the true plane >= {ran['min_cos_to_truth']:.6f}; {ran['ms']:.3f} ms "
-          f"on the card (median of 5: {' '.join(f'{x:.3f}' for x in ran_rounds)})")
-    return {"iou3d_ms": iou["ms"], "iou3d_err": iou["max_abs_err"], "ransac_ms": ran["ms"]}
+          f"points); |cos| to the true plane >= {ran['min_cos_to_truth']:.6f}")
+    return {"iou3d_err": iou["max_abs_err"], "ransac_same_winner": ran["same_winner"]}
 
 
-def ops_phase(dev, det, ground, card) -> dict:
+def ops_phase(dev, det, ground) -> dict:
     """Phase 31: the ops layer's last public functions on the card and on
     the CPU, on the main path's own data: phase 4's detections (b8, K per
     image), the b25 GT cubes of tiny_batch, phase 29's ground maps. Card vs
-    CPU within 1e-5 of scale, equal flags and masks; each function's median
-    ms of 5 calls on the card (CUDA events). Returns the numbers PERF.md
-    keeps."""
+    CPU within 1e-5 of scale, equal flags and masks. Returns each function's
+    largest error."""
     import torch
     from weakcube_tpu_torch.entry import tiny_batch
     from weakcube_tpu_torch.ops import boxes, cuboids, rotations, sampling
@@ -1738,7 +1505,7 @@ def ops_phase(dev, det, ground, card) -> dict:
             (tb["K"][:, None], gt_box3d, gt.poses, gt.valid, 3),
             "the GT cubes 4 m nearer": (tb["K"][:, None], nearer, gt.poses, gt.valid, 3)}
     del tb
-    errs, ms = {}, {}
+    errs = {}
 
     def compare(name, got, want, exact=False):
         got, want = got.cpu(), want.cpu()
@@ -1756,9 +1523,6 @@ def ops_phase(dev, det, ground, card) -> dict:
     def both(fn, *args):
         """fn on the card's tensors and on their CPU copies."""
         return fn(*args), fn(*(a.to(cpu) if torch.is_tensor(a) else a for a in args))
-
-    def timed(name, fn):
-        ms[name] = statistics.median(timed_ms(fn, 1, warmup=1) for _ in range(5))
 
     for label, (K, box3d, R, valid, k) in sets.items():
         for xywh in (True, False):
@@ -1785,13 +1549,6 @@ def ops_phase(dev, det, ground, card) -> dict:
         q = both(rotations.matrix_to_quaternion, Ro)
         compare("matrix_to_quaternion", *q)
         compare("matrix_to_quaternion round trip", rotations.quaternion_to_matrix(q[0]), Ro)
-        if label.startswith("phase 4"):
-            timed("convert_3d_box_to_2d", lambda: cuboids.convert_3d_box_to_2d(
-                K, box3d, R, float(TRAIN_SIZE), float(TRAIN_SIZE)))
-            timed("get_cuboid_verts", lambda: cuboids.get_cuboid_verts(K, box3d, R))
-            timed("R_to_allocentric", lambda: cuboids.R_to_allocentric(K, R, u, v))
-            timed("matrix_to_rotation_6d", lambda: rotations.matrix_to_rotation_6d(Ro))
-            timed("matrix_to_quaternion", lambda: rotations.matrix_to_quaternion(Ro))
         # the uniform sampler: min(k, valid) picks in each row, all valid;
         # one seed, one mask
         pick = [sampling.uniform_topk_mask(torch.Generator(device=dev).manual_seed(31), valid, k)
@@ -1807,21 +1564,16 @@ def ops_phase(dev, det, ground, card) -> dict:
               f"CPU within {tol} of scale, equal flags ({int(behind.sum())} cubes with a corner "
               f"behind the camera, {int(fully.sum())} of them fully); uniform_topk_mask k {k}: "
               f"{pick[0].sum(-1).tolist()} picks per row, all valid, one seed one mask")
-    gen = torch.Generator(device=dev).manual_seed(31)
-    timed("uniform_topk_mask", lambda: sampling.uniform_topk_mask(gen, det["valid"], 50))
     maps, truth = (torch.from_numpy(ground[k]).to(dev) for k in ("maps", "truth"))
     ious = both(boxes.mask_iou, maps, truth)
     compare("mask_iou", *ious, exact=True)
-    timed("mask_iou", lambda: boxes.mask_iou(maps, truth))
     print(f"[ops] mask_iou of phase 29's {maps.shape[0]} depth-ransac ground maps "
           f"({maps.shape[1]}x{maps.shape[2]}; on K2's depth, then on the analytic depth; "
           f"{int(maps.flatten(1).any(1).sum())} not empty) against the true ground, card vs "
           f"CPU: equal (median IoU {statistics.median(ious[0].tolist()):.4f})")
-    print(f"[ops] {card}: median ms of 5 calls on the card (CUDA events; the b8 detections, "
-          f"mask_iou on the {maps.shape[0]} maps): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-          + "; largest card vs CPU error of scale: "
+    print("[ops] largest card vs CPU error of scale: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    return {"ms": ms, "errs": errs}
+    return {"errs": errs}
 
 
 EVAL_SCENES, EVAL_BATCH = 64, 32
@@ -1845,7 +1597,8 @@ def eval_phase(dev, out):
     --synthetic 64 --eval-only, in process) on phase 15's OUTPUT_DIR, so that
     it evaluates the checkpoint the train CLI wrote: 38 classes, 512 px, bf16,
     two batches of 32. Checks every scene counted once, K1 launched twice per
-    batch, AP2D and AP3D finite. Returns the numbers PERF.md keeps and the
+    batch, AP2D and AP3D finite. Returns the numbers PERF.md keeps (the
+    eval CLI's speed, until a cell measures it: ROADMAP.md F5) and the
     evaluator's record pairs (for phase 21)."""
     import math
     import torch
@@ -1909,14 +1662,12 @@ def eval_k1_phase(dev, out):
     records through phase 15's checkpoint with its two K1 calls (box pooler,
     R = POST_NMS_TOPK_TEST 1000; cube pooler, R = DETECTIONS_PER_IMAGE 100)
     kept; K1 held to its plain version on them (in chunks of 8 images),
-    timed by kernel_device_ms beside its touched-pixel bound, the plain
-    version and the library yardstick (F.grid_sample + mean). Returns K1's
-    eval-batch numbers."""
+    timed by kernel_device_ms beside its bound. Returns K1's eval-batch
+    numbers."""
     import torch
     from weakcube_tpu_torch.data.build import build_test_batches, to_device
     from weakcube_tpu_torch.models.priors import compute_priors
     from weakcube_tpu_torch.models.rcnn3d import build_model
-    from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
     from weakcube_tpu_torch.ops import roi_align_cuda
     from weakcube_tpu_torch.tools import eval_net, train_net
 
@@ -1946,42 +1697,27 @@ def eval_k1_phase(dev, out):
     if len(calls) != 2:
         fail(f"one eval batch made {len(calls)} K1 calls, expected 2")
     calls.sort(key=lambda c: -c[1].shape[1])
-    rep = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+    rep = {"ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
     for name, (levels, boxes, (strides, out_size, sr, min_level)) in zip(
             ("box pooler", "cube pooler"), calls):
         got = K1(levels, boxes, strides, out_size, sr, min_level)
-        torch.cuda.synchronize()
-        plain_ms, err = 0.0, 0.0
         for i in range(0, boxes.shape[0], 8):   # the plain version's gathers, 8 images at a time
-            lv = [f[i:i + 8] for f in levels]
-            t = time.perf_counter()
-            want = roi_align_cuda.plain(lv, boxes[i:i + 8], strides, out_size, sr, min_level)
-            torch.cuda.synchronize()
-            plain_ms += (time.perf_counter() - t) * 1e3
-            err = max(err, check_close(f"K1 {name} images {i}-{i + 7} of the eval batch",
-                                       got[i:i + 8], want, 1e-2, 1e-2))
+            want = roi_align_cuda.plain([f[i:i + 8] for f in levels], boxes[i:i + 8], strides,
+                                        out_size, sr, min_level)
+            rep["max_abs_err"] = max(rep["max_abs_err"], check_close(
+                f"K1 {name} images {i}-{i + 7} of the eval batch", got[i:i + 8], want, 1e-2, 1e-2))
             del want
         del got
         ms = kernel_device_ms(lambda: K1(levels, boxes, strides, out_size, sr, min_level), 20)
-        bd = roi_align_bound(levels, boxes, strides, out_size, sr)
-        lib = library_roi_align(levels, boxes, strides, out_size, sr)
-        lib_ms = statistics.median(timed_ms(lib, 1, warmup=1) for _ in range(3))
-        del lib
+        bound = k1_bound_ms(levels, boxes, strides, out_size, sr)
+        rep["ms"] += ms
+        rep["bound_ms"] += bound
         torch.cuda.empty_cache()
-        for k, x in (("ms", ms), ("bound_ms", bd["touched"][0]), ("plain_ms", plain_ms),
-                     ("library_ms", lib_ms)):
-            rep[k] += x
-        rep["max_abs_err"] = max(rep["max_abs_err"], err)
-        rep["bound_by"] = rep.get("bound_by") or bd["touched"][1]
         print(f"[timing] K1 on the eval batch, {name} b{boxes.shape[0]} R={boxes.shape[1]} "
               f"({levels[0].dtype}, levels {[tuple(f.shape[1:3]) for f in levels]}): {ms:.4f} ms "
-              f"of device time per launch; bound {bd['touched'][0]:.4f} ms by "
-              f"{bd['touched'][1]} over the touched pixels ({100 * bd['touched'][0] / ms:.1f}% of "
-              f"it), {bd['whole'][0]:.4f} ms over the whole pyramid; plain {plain_ms:.3f} ms (4 "
-              f"calls of 8 images); library {lib_ms:.3f} ms (median of 3)")
+              f"of device time per launch; bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it)")
     print(f"[timing] K1 per eval batch (box + cube pooler, b{EVAL_BATCH}): {rep['ms']:.4f} ms, "
-          f"bound {rep['bound_ms']:.4f} ms, plain {rep['plain_ms']:.3f} ms, library "
-          f"{rep['library_ms']:.3f} ms")
+          f"bound {rep['bound_ms']:.4f} ms")
     return rep
 
 
@@ -2010,7 +1746,8 @@ def evaluator_phase(dev, kept):
     card and on the CPU: every AP the same within 1e-9 (should a pair's
     IoU3D fall on two sides of a threshold, the card's evaluator is held to
     the CPU's exactly on the CPU's IoUs, and those pairs are printed), and
-    each side's seconds per image."""
+    each side's seconds per image (until a cell measures the evaluator,
+    ROADMAP.md F5)."""
     rep = {}
     for name, pairs in (("phase 19's records", kept),
                         ("its detections against GT made from them", gt_from_detections(kept))):
@@ -2169,8 +1906,10 @@ def full_width_steps(dev, cfg, batch, label: str, n_calls: int) -> dict:
     then one step whose pooler calls are kept and held to the kernels'
     plain versions. Fails unless every loss is finite (Cube/IoU3D off its
     tick excepted), every update applied and K1 and K1-bwd launched n_calls
-    times per step. Returns the times, peak memory, launches and errors,
-    and the model, optimizer and state for more steps."""
+    times per step. Returns the times, peak memory, launches and errors.
+    The steps' times are the only record of these configurations' speed
+    until cells measure them (ROADMAP.md F2: all losses, F4: supervised and
+    2D-only, F7: the backbone sweep)."""
     import numpy as np
     import torch
     from weakcube_tpu_torch.entry import dims_priors
@@ -2218,91 +1957,12 @@ def full_width_steps(dev, cfg, batch, label: str, n_calls: int) -> dict:
           f"{TRAIN_STEPS} (each {', '.join(f'{x:.3f}' for x in times)} ms, first is the "
           f"warm-up; spread {min(times[1:]):.3f}-{max(times[1:]):.3f} ms), "
           f"{TRAIN_BATCH * 1e3 / ms:.2f} images/s")
-    out = {}
-
-    def kept():
-        out["state"], _ = train_step(model, opt, state, batch, gen)
-    fwd_calls, bwd_calls = with_pooler_calls_kept(kept, n_calls)
+    fwd_calls, bwd_calls = with_pooler_calls_kept(
+        lambda: train_step(model, opt, state, batch, gen), n_calls)
     print(f"[compare] K1 and K1-bwd vs plain on the {label}'s own pyramid, boxes and gradients")
     errs = check_pooler_calls(fwd_calls, bwd_calls, f"{label} ")
     return dict(ms=ms, times=times, peak_gib=peak, k1=k1, k1_bwd=kb, errs=errs,
-                logs=all_logs[-1], model=model, opt=opt, state=out["state"], gen=gen)
-
-
-def weak_op_times(dev, run: dict, batch) -> dict:
-    """One more step of the all-loss weak run under the profiler, the four
-    plain ops of its new losses (the z search, the lattice median, the
-    depth range's quantiles, the soft hull) each inside a record_function
-    range: each range's device time (the soft hull's range also holds the
-    recompute that its activation checkpointing runs in the backward).
-    Their inputs are kept, and each op is also timed alone on them by CUDA
-    events: forward, and forward + backward where it has a gradient."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from weakcube_tpu_torch.models import roi_heads
-    from weakcube_tpu_torch.ops import hull
-    from weakcube_tpu_torch.parallel.train_step import train_step
-
-    owners = {"z_area_search_loss": roi_heads, "masked_median_depth_in_boxes": roi_heads,
-              "nanquantile": torch, "soft_hull_mask": hull}
-    orig = {name: getattr(mod, name) for name, mod in owners.items()}
-    kept = {name: [] for name in owners}
-
-    def wrap(name):
-        def fn(*a, **k):
-            if not kept[name]:
-                kept[name].append((a, k))
-            with record_function(f"weak_op::{name}"):
-                return orig[name](*a, **k)
-        return fn
-    for name, mod in owners.items():
-        setattr(mod, name, wrap(name))
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            train_step(run["model"], run["opt"], run["state"], batch, run["gen"])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-    finally:
-        for name, mod in owners.items():
-            setattr(mod, name, orig[name])
-    rep = {"step_wall_ms": wall}
-    ev = {e.key: e for e in prof.key_averages()}
-    for name in owners:
-        e = ev.get(f"weak_op::{name}")
-        dev_us = 0.0 if e is None else getattr(e, "device_time_total", 0.0) or 0.0
-        rep[f"{name}_profiled_ms"] = dev_us / 1e3 if dev_us else None
-        rep[f"{name}_calls"] = 0 if e is None else e.count
-    # alone, on the step's own inputs
-    for name in owners:
-        if not kept[name]:
-            fail(f"the all-loss step never called {name}")
-        a, k = kept[name][0]
-
-        # the gradient flows into the cubes (z search) and the corners (hull)
-        a = [x.detach() if torch.is_tensor(x) else x for x in a]
-        if name == "z_area_search_loss":
-            a[1] = type(a[1])(a[1].tensor.detach().requires_grad_(True))
-        elif name == "soft_hull_mask":
-            a[0].requires_grad_(True)
-        call = lambda: orig[name](*a, **k)
-        fwd = statistics.median(timed_ms(call, 5, warmup=1) for _ in range(3))
-        out = call()
-        both = None
-        if out.requires_grad:
-            g = torch.ones_like(out)
-            both = statistics.median(timed_ms(lambda: call().backward(g), 5, warmup=1)
-                                     for _ in range(3))
-        rep[f"{name}_ms"], rep[f"{name}_fwd_bwd_ms"] = fwd, both
-        shape = tuple(a[0].shape) if torch.is_tensor(a[0]) else tuple(a[1].tensor.shape)
-        prof_ms = rep[f"{name}_profiled_ms"]
-        print(f"[timing] {name} on the all-loss step's inputs (first argument {shape}): "
-              f"{fwd:.3f} ms forward" + (f", {both:.3f} ms forward + backward" if both else "")
-              + " (CUDA events, median of 3 x 5 calls); in the profiled step "
-              + (f"{prof_ms:.3f} ms of device time over {rep[f'{name}_calls']} call(s)"
-                 if prof_ms is not None else "no device time recorded: not measured"))
-    return rep
+                logs=all_logs[-1])
 
 
 def heads_phases(dev) -> dict:
@@ -2342,7 +2002,6 @@ def heads_phases(dev) -> dict:
     if not want <= set(run["logs"]):
         fail(f"the all-loss step logged {sorted(run['logs'])}, missing {want - set(run['logs'])}")
     rep["all_losses"] = {k: run[k] for k in ("ms", "times", "peak_gib", "k1", "k1_bwd", "errs")}
-    rep["all_losses"]["ops"] = weak_op_times(dev, run, all_batch)
     del run
     torch.cuda.empty_cache()
     print(f"[phase] 26 (all-loss weak step) took {time.time() - t:.1f} s")
@@ -2367,7 +2026,9 @@ def recipe_cli_phase(dev, out: str) -> dict:
     4 iterations, then the weak run (configs/Omni_combined.yaml)
     warm-started from its model_final by MODEL.WEIGHTS_PRETRAIN for 4. K1
     and K1-bwd launch once per 2D-only step and twice per weak step; the
-    2D-only run logs no Cube/ key. Returns steps/s and launches of each."""
+    2D-only run logs no Cube/ key. Returns steps/s (until cells measure
+    the CLI's step and the 2D-only pretrain, ROADMAP.md F1 and F4) and
+    launches of each."""
     import math
     import torch
     from weakcube_tpu_torch.ops import roi_align_cuda
@@ -2483,10 +2144,10 @@ def check_same_detections(a, b, label: str, atol: float, rtol: float) -> int:
 
 def sweep_detection(dev, cfg, label: str) -> dict:
     """30(a): the inference forward of cfg's model (random weights, seed 0)
-    at b8 of make_batch at 512 px: one warm-up and 3 timed forwards, the
-    outputs checked, K1 twice per forward and held to its plain version on
-    a forward's own pyramid and boxes, one forward under the profiler.
-    Returns the numbers and the model."""
+    at b8 of make_batch at 512 px: one warm-up and 3 timed forwards (until
+    a cell measures these trunks, ROADMAP.md F7), the outputs checked, K1
+    twice per forward and held to its plain version on a forward's own
+    pyramid and boxes. Returns the numbers and the model."""
     import torch
     from weakcube_tpu_torch.entry import dims_priors, make_batch
     from weakcube_tpu_torch.models.rcnn3d import build_model
@@ -2526,17 +2187,13 @@ def sweep_detection(dev, cfg, label: str) -> dict:
     if len(calls) != 2:
         fail(f"{label}: the kept forward made {len(calls)} K1 calls, expected 2")
     err = check_k1_calls(calls, label)
-    prof = {}
-    profile_forward(model, batch, report=prof)
     ms = statistics.median(times[1:])
     print(f"[timing] {label} forward b{SWEEP_BATCH} @ {TRAIN_SIZE} px: median {ms:.3f} ms over 3 "
           f"(each {', '.join(f'{x:.3f}' for x in times)} ms, first is the warm-up), "
-          f"{SWEEP_BATCH * 1e3 / ms:.2f} images/s; device busy "
-          + (f"{prof['busy_ms']:.3f} ms under the profiler" if prof else "not measured")
-          + f"; K1 launches {k1} (2 per forward); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return dict(ms=ms, times=times, device_ms=prof.get("busy_ms"), k1=k1, err=err,
-                valid=int(det.valid.sum()), model=model, batch=batch, det=det)
+          f"{SWEEP_BATCH * 1e3 / ms:.2f} images/s; K1 launches {k1} (2 per forward); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return dict(ms=ms, times=times, k1=k1, err=err, valid=int(det.valid.sum()), model=model,
+                batch=batch, det=det)
 
 
 def released_load_check(dev, cfg, model, batch, det, out: str) -> dict:
@@ -3022,7 +2679,9 @@ def dp_cli_phase(dev) -> dict:
     --resume to 8 under --profile (rank 0's NCCL kernels per step by kind,
     K1 and K1-bwd in the trace); each rank's mapper ms (its 25 rows of a
     global batch, one thread); at all cards, the eval CLI sharded over them
-    on that checkpoint. On one card it prints that it was not run."""
+    on that checkpoint. On one card it prints that it was not run. Its
+    images/s, NCCL kernels and scaling are the only record of data
+    parallel's speed until a cell measures it (ROADMAP.md F3)."""
     import math
     import shutil
     import tempfile
@@ -3140,16 +2799,12 @@ def dp_cli_phase(dev) -> dict:
 
 def nms_phase(dev) -> dict:
     """Phase 32: the NMS kernel at the cells' shapes against the plain fixed
-    point (bit for bit), timed beside its byte bound, the plain version and
-    torchvision's batched_nms where installed. Returns the kernels-line
-    entry (ms per shape)."""
+    point (bit for bit), its device time beside the bytes nms_mask needs.
+    Returns the kernels-line entry (ms per shape)."""
     import torch
     import torch_nms_boxes as nms_boxes
+    from harness import bounds
     from weakcube_tpu_torch.ops import nms as nms_ops
-    try:
-        from torchvision.ops import batched_nms
-    except ImportError:
-        batched_nms = None
     for line in nms_ops.build_log.splitlines():
         if any(w in line for w in ("registers", "spill", "smem")):
             print(f"  ptxas: {line.strip()}")
@@ -3178,26 +2833,17 @@ def nms_phase(dev) -> dict:
         if not torch.equal(keep, got.reshape(M, n)):
             fail(f"the NMS kernel launched alone differs from nms_mask at {shape}")
         call_ms = kernel_device_ms(lambda: nms_boxes.run(on, dev), 20)
-        plain_ms = timed_ms(lambda: nms_boxes.run(on, dev, nms_ops.nms_mask_plain), 3, 1)
         # the bytes nms_mask needs: each box, score and valid flag read once,
         # the mask written once (the rank order is the wrapper's own)
-        bound = M * n * (16 + on["scores"].element_size() + 1 + 1) / PEAK_BYTES_PER_S * 1e3
-        lib_ms = None
-        if batched_nms is not None:
-            fv = valid.reshape(-1)
-            fb, fs = boxes.reshape(-1, 4)[fv], on["scores"].reshape(-1).float()[fv]
-            ids = torch.arange(M, device=dev).repeat_interleave(n)[fv]
-            lib_ms = timed_ms(lambda: batched_nms(fb, fs, ids, on["thr"]), 10)
+        bound = (M * n * (16 + on["scores"].element_size() + 1 + 1) / bounds.PEAK_BYTES_PER_S
+                 * 1e3)
         kept = int(got.sum())
-        print(f"[nms] {shape}: {M} x {n}, {kept} of {int(valid.sum())} valid boxes kept; "
-              f"kernel {ms:.4f} ms device per launch (target {target} ms), the nms_mask call "
-              f"(rank sort + kernel) {call_ms:.4f}, byte bound {bound:.4f} ms "
-              f"({100 * bound / ms:.2f}%; the greedy chain's {-(-n // 64)} chunk steps pace "
-              f"it), plain {plain_ms:.3f} ms (its syncs included), "
-              f"torchvision.ops.batched_nms "
-              f"{'not installed' if lib_ms is None else f'{lib_ms:.3f} ms'}; equal bit for bit")
+        print(f"[nms] {shape}: {M} x {n}, {kept} of {int(valid.sum())} valid boxes kept, equal "
+              f"bit for bit; kernel {ms:.4f} ms device per launch (target {target} ms), the "
+              f"nms_mask call (rank sort + kernel) {call_ms:.4f}, byte bound {bound:.4f} ms "
+              f"({100 * bound / ms:.2f}%; the greedy chain's {-(-n // 64)} chunk steps pace it)")
         entry["shapes"][shape] = {"M": M, "n": n, "kept": kept, "ms": ms, "call_ms": call_ms,
-                                  "bound_ms": bound, "plain_ms": plain_ms, "library_ms": lib_ms}
+                                  "bound_ms": bound}
     return entry
 
 
@@ -3232,20 +2878,16 @@ def bn_shapes(dev) -> list:
 
 def bn_phase(dev) -> dict:
     """Phase 33: BatchNorm's training kernels (csrc/batch_norm.cu) on the 39
-    BatchNorm calls of the b25 step at 512 px: per call, y and dx held to
-    the plain chain (models/layers.py with the kernels switched off) on the
-    same tensors, the kernels' device ms forward and backward against the
-    least bytes the function needs (`bound_ms`: forward x read and y
-    written, backward g and x read and dx written) and against those of
-    their two-read design (`design_floor_ms`: x read twice forward, g and x
-    twice backward), at 3.35 TB/s, the plain chain's forward + backward
-    and, as a yardstick the port never calls, F.batch_norm's (PyTorch's own
-    training kernels, another variance); the launches of each path. Returns
-    the kernels-line entry (ms a step) with `launches_a_step`, the kernels'
-    launches in one step's calls."""
+    BatchNorm calls of the b25 step at 512 px: per call, the kernels'
+    launches, y and dx held to the plain chain (models/layers.py with the
+    kernels switched off) on the same tensors, and the kernels' device ms
+    forward and backward against the least bytes the function needs
+    (`bound_ms`: forward x read and y written, backward g and x read and dx
+    written) over HBM bandwidth. Returns the kernels-line entry (ms a step)
+    with `launches_a_step`, the kernels' launches in one step's calls."""
     from unittest import mock
     import torch
-    import torch.nn.functional as F
+    from harness import bounds
     from weakcube_tpu_torch.models.layers import BatchNorm2d
     from weakcube_tpu_torch.ops import batch_norm_cuda as bnc
     for line in bnc.build_log.splitlines():
@@ -3256,9 +2898,7 @@ def bn_phase(dev) -> dict:
           f"{sum(not c[2] for c in calls)} without a gradient (the dead project)")
     gen = torch.Generator(device=dev).manual_seed(33)
     plain_off = mock.patch.object(bnc, "takes", lambda *a: False)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "design_floor_ms": 0.0,
-           "library_ms": 0.0}
-    launches, split = {}, {}
+    tot = {"ms": 0.0, "bound_ms": 0.0}
     for i, (shape, dt, grad) in enumerate(calls):
         N, C, H, W = shape
         x = torch.randn((N, H, W, C), generator=gen, device=dev).to(dt).permute(0, 3, 1, 2)
@@ -3275,10 +2915,6 @@ def bn_phase(dev) -> dict:
             if grad:
                 y.backward(g)
             return y
-
-        def plain_step():
-            with plain_off:
-                return kernel_step()
         before = (bnc.batch_norm_train.launches, bnc.batch_norm_train_backward.launches)
         y_k = kernel_step()
         dx_k = xr.grad if grad else None
@@ -3286,7 +2922,8 @@ def bn_phase(dev) -> dict:
         after = (bnc.batch_norm_train.launches, bnc.batch_norm_train_backward.launches)
         if after != (before[0] + 2, before[1] + 2 * grad):
             fail(f"BatchNorm call {i}: launches {before} -> {after}")
-        y_p = plain_step()
+        with plain_off:
+            y_p = kernel_step()
         for name, a, b in (("y", y_k, y_p), ("dx", dx_k, xr.grad)):
             if a is None:
                 continue
@@ -3294,72 +2931,27 @@ def bn_phase(dev) -> dict:
             if not err <= 1e-2:  # a few bf16 steps of the largest value
                 fail(f"BatchNorm call {i} {shape}: {name} off the plain chain by {err:.3e}")
         xr.grad = None
-        if i in (0, len(calls) - 1) or not grad:
-            key = "with grad" if grad else "no grad"
-            if key not in launches:
-                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
-                        as prof:
-                    plain_step()
-                    torch.cuda.synchronize()
-                launches[key] = {"kernels": 2 + 2 * grad, "plain": sum(
-                    e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())}
-                xr.grad = None
         fwd = lambda: bnc._forward(x, *args)  # noqa: E731
         _, coef, _ = fwd()
-        if shape not in split:  # each kernel's device time, once a shape
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
-                    as prof:
-                fwd()
-                if grad:
-                    bnc.batch_norm_train_backward(g, x, bn.weight, coef)
-                torch.cuda.synchronize()
-            split[shape] = {k: sum(e.time_range.elapsed_us() for e in prof.events()
-                                   if e.device_type == torch.autograd.DeviceType.CUDA
-                                   and f"bn_train_{k}_kernel" in e.name)
-                            for k in ("stats", "apply", "grad_reduce", "grad_input")}
-            print(f"[bn] {shape} us a kernel: {split[shape]}")
         ms_f = kernel_device_ms(fwd, 20)
         ms_b = kernel_device_ms(lambda: bnc.batch_norm_train_backward(g, x, bn.weight, coef),
                                 20) if grad else 0.0
-        # the plain chain and the library queue dozens of launches and
-        # autograd's bookkeeping: a ~50 ms sleep hides them
-        plain_ms = kernel_device_ms(plain_step, 1, 100_000_000)
-        xr.grad = None
-        bound = x.numel() * x.element_size() * (2 + 3 * grad) / PEAK_BYTES_PER_S * 1e3
-        design = x.numel() * x.element_size() * (3 + 5 * grad) / PEAK_BYTES_PER_S * 1e3
-
-        def library():
-            xl = x.detach().requires_grad_(grad)
-            y = F.batch_norm(xl, bn.running_mean.clone(), bn.running_var.clone(), bn.weight,
-                             bn.bias, True, 0.1, bn.eps)
-            if grad:
-                y.backward(g)
-        try:
-            lib_ms = kernel_device_ms(library, 1, 100_000_000)
-        except RuntimeError as e:  # PyTorch's kernels may refuse bf16 x with float32 weights
-            print(f"[bn] F.batch_norm refused {shape}: {str(e).splitlines()[0]}")
-            lib_ms = None
+        bound = x.numel() * x.element_size() * (2 + 3 * grad) / bounds.PEAK_BYTES_PER_S * 1e3
         bn.zero_grad(set_to_none=True)
         ms = ms_f + ms_b
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
-                     ("design_floor_ms", design), ("library_ms", lib_ms)):
-            tot[k] = None if v is None or tot[k] is None else tot[k] + v
+        tot["ms"] += ms
+        tot["bound_ms"] += bound
         print(f"[bn] {i:2d} {shape} {str(dt)[6:]} {'grad' if grad else 'no grad'}: kernels "
-              f"{ms_f:.4f} + {ms_b:.4f} = {ms:.4f} ms device, least bytes "
-              f"{bound:.4f} ms ({100 * bound / ms:.1f}%), two-read design {design:.4f} ms "
-              f"({100 * design / ms:.1f}%), plain chain {plain_ms:.4f} ms, "
-              f"F.batch_norm {lib_ms} ms")
+              f"{ms_f:.4f} + {ms_b:.4f} = {ms:.4f} ms device, least bytes {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}%)")
     per_step = sum(4 if grad else 2 for _, _, grad in calls)
-    print(f"[bn] a step's {len(calls)} calls: kernels {tot['ms']:.3f} ms device "
-          f"(least-bytes bound {tot['bound_ms']:.3f} ms, "
-          f"{100 * tot['bound_ms'] / tot['ms']:.1f}%; two-read design floor "
-          f"{tot['design_floor_ms']:.3f} ms, {100 * tot['design_floor_ms'] / tot['ms']:.1f}%), "
-          f"plain chain {tot['plain_ms']:.3f} ms, F.batch_norm {tot['library_ms']} ms; "
-          f"launches a call by path: {launches}; the kernels' launches a step: {per_step}")
+    print(f"[bn] a step's {len(calls)} calls: kernels {tot['ms']:.3f} ms device (least-bytes "
+          f"bound {tot['bound_ms']:.3f} ms, {100 * tot['bound_ms'] / tot['ms']:.1f}%); the "
+          f"kernels' launches a step: {per_step}")
     return {"name": "batch_norm_train (BatchNorm training: statistics, normalisation, "
                     "gradient), the b25 step's calls", "route": "cuda", "source": BN_SOURCE,
             "replaces": BN_REPLACES, "bound_by": "bytes", "calls": len(calls),
-            "launches_a_call": launches, "launches_a_step": per_step, **tot}
+            "launches_a_step": per_step, **tot}
 
 
 def main() -> None:
@@ -3371,6 +2963,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this run needs a CUDA device")
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))  # box sets and the train-step check
+    sys.path.insert(0, BENCH_DIR)  # the frozen bounds
     try:
         from weakcube_tpu_torch.entry import (dims_priors, flagship_cfg, make_batch,
                                               tiny_cfg)
@@ -3381,8 +2974,10 @@ def main() -> None:
         from weakcube_tpu_torch.ops import batch_norm_cuda
         from weakcube_tpu_torch.ops import nms as nms_ops
         from weakcube_tpu_torch.ops.cuda_build import build_host_library
+        from harness import bounds  # noqa: F401
     except ImportError as e:
-        fail(f"the weakcube_tpu_torch package is not beside this script: {e}")
+        fail(f"the weakcube_tpu_torch package or benchmark/harness is not beside this script: "
+             f"{e}")
     # every float32 comparison below runs in full float32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3399,8 +2994,8 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # -- 2. build K1 and K2, one nvcc each, and the evaluator's matcher (g++),
-    # in parallel, so that no later phase's time holds a compile -------------
+    # -- 2. build the four kernel sources, one nvcc each, and the evaluator's
+    # matcher (g++), in parallel, so that no later phase's time holds a compile
     t = time.time()
     with ThreadPoolExecutor(4) as pool:
         builds = [(name, mod, pool.submit(mod.build))
@@ -3473,16 +3068,12 @@ def main() -> None:
           f"compute {cfg.TPU.COMPUTE_DTYPE}, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
           f"built in {time.time() - t:.1f} s")
-    n_fwd = 4  # one warm-up + 3 timed
+    n_fwd = 4
     K1.launches = flash_attention_cuda.flash_attention.launches = nms_ops.nms_mask.launches = 0
-    times = []
     with torch.inference_mode():
-        for i in range(n_fwd):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
+        for _ in range(n_fwd):
             det = model(batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
     launches, nms_fwd_launches = K1.launches, nms_ops.nms_mask.launches
 
     # -- 5. outputs -------------------------------------------------------
@@ -3542,45 +3133,18 @@ def main() -> None:
     print(f"[reference] small float32 model, card vs CPU: {n_match} valid "
           "detections agree (atol 1e-3, rtol 1e-3)")
 
-    # -- 6. timing ----------------------------------------------------------
-    fwd_ms = statistics.median(times[1:])
-    print(f"[timing] forward b8 @ 512 px: median {fwd_ms:.3f} ms over {len(times) - 1} "
-          f"(each {', '.join(f'{x:.3f}' for x in times)} ms, first is the warm-up), "
-          f"{8e3 / fwd_ms:.1f} images/s")
-    # K1 and the library yardstick in turns, five rounds each; the medians
-    # are reported
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "whole_bound_ms": 0.0}
-    bound_by = None
+    # -- 6. K1's device time on the forward's calls, and on other RoIs --------
+    tot = {"ms": 0.0, "bound_ms": 0.0}
     for name, bx, res in calls:
-        lib = library_roi_align(levels, bx, FPN_STRIDES, res, sr)
-        turns = {"K1": (lambda: K1(levels, bx, FPN_STRIDES, res, sr), 20), "library": (lib, 3)}
-        rounds = {k: [] for k in turns}
-        for r in range(5):
-            for k in (list(turns) if r % 2 == 0 else list(turns)[::-1]):
-                rounds[k].append(timed_ms(turns[k][0], turns[k][1], warmup=1))
-        ev_ms, lib_ms = statistics.median(rounds["K1"]), statistics.median(rounds["library"])
-        ms = kernel_device_ms(turns["K1"][0], 20)  # the kernel, not the host
-        plain_ms = timed_ms(lambda: plain(levels, bx, FPN_STRIDES, res, sr), 3, warmup=1)
-        lib_err = (lib().float() - plain(levels, bx, FPN_STRIDES, res, sr).float()).abs().max().item()
-        bd = roi_align_bound(levels, bx, FPN_STRIDES, res, sr)
-        (bound, by), (whole, _) = bd["touched"], bd["whole"]
-        bound_by = bound_by or by
-        for k, x in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound), ("library_ms", lib_ms),
-                     ("whole_bound_ms", whole)):
-            tot[k] += x
+        ms = kernel_device_ms(lambda: K1(levels, bx, FPN_STRIDES, res, sr), 20)
+        bound = k1_bound_ms(levels, bx, FPN_STRIDES, res, sr)
+        tot["ms"] += ms
+        tot["bound_ms"] += bound
         print(f"[timing] K1 {name} R={bx.shape[1]}: {ms:.4f} ms of device time per launch "
-              f"(20 launches queued behind a sleep kernel); {ev_ms:.4f} ms per call by CUDA "
-              f"events (median; rounds "
-              f"{' '.join(f'{x:.4f}' for x in rounds['K1'])}); bound {bound:.4f} ms by {by} over "
-              f"the touched pixels ({bd['touched_bytes']:.4e} B; {100 * bound / ms:.1f}% of it), "
-              f"{whole:.4f} ms over the whole pyramid ({100 * whole / ms:.1f}%); staged L2->SM "
-              f"{bd['staged_bytes']:.4e} B; plain {plain_ms:.3f} ms; library {lib_ms:.3f} ms "
-              f"(median; rounds {' '.join(f'{x:.3f}' for x in rounds['library'])}; max |err| vs "
-              f"plain {lib_err:.3e})")
+              f"(20 launches queued behind a sleep kernel); bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}% of it)")
     print(f"[timing] K1 per forward (box + cube pooler): {tot['ms']:.4f} ms, bound "
-          f"{tot['bound_ms']:.4f} ms over the touched pixels, {tot['whole_bound_ms']:.4f} ms over "
-          "the whole pyramid")
+          f"{tot['bound_ms']:.4f} ms")
     # the box pooler's count of other RoIs on the forward's pyramid, checked
     # and timed the same way: real-size RoIs (p3-p5 windows of 225-784
     # pixels), and sub-pixel RoIs at one spot (every read a cache hit: what
@@ -3590,23 +3154,12 @@ def main() -> None:
              "sub-pixel RoIs at one spot": torch.tensor([100.0, 100.0, 100.3, 100.3],
                                                         device=dev).expand(8, 1000, 4).contiguous()}
     for name, bx in other.items():
-        fp = roi_align_cuda.footprint(levels, bx, FPN_STRIDES, res_box, sr)
-        lv = fp["levels"].flatten().tolist()
-        px = (fp["ny"] * fp["nx"]).float()
         check_close(f"{name} R={bx.shape[1]}", K1(levels, bx, FPN_STRIDES, res_box, sr),
                     plain(levels, bx, FPN_STRIDES, res_box, sr), *tol)
-        call = lambda: K1(levels, bx, FPN_STRIDES, res_box, sr)
-        ev_ms = statistics.median(timed_ms(call, 20, warmup=1) for _ in range(5))
-        ms = kernel_device_ms(call, 20)
-        bd = roi_align_bound(levels, bx, FPN_STRIDES, res_box, sr)
-        print(f"[timing] K1 on {name} R={bx.shape[1]} (RoIs per level p2..p6 "
-              f"{[lv.count(l) for l in range(2, 7)]}; staged pixels per RoI: mean "
-              f"{px.mean():.1f}, max {px.max():.0f}): {ms:.4f} ms of device time per launch; "
-              f"{ev_ms:.4f} ms per call by CUDA events (median of 5); bound {bd['touched'][0]:.4f} "
-              f"ms by {bd['touched'][1]} over the touched pixels ({bd['touched_bytes']:.4e} B), "
-              f"{bd['whole'][0]:.4f} ms over the whole pyramid; staged L2->SM "
-              f"{bd['staged_bytes']:.4e} B")
-    profile_forward(model, batch)
+        ms = kernel_device_ms(lambda: K1(levels, bx, FPN_STRIDES, res_box, sr), 20)
+        bound = k1_bound_ms(levels, bx, FPN_STRIDES, res_box, sr)
+        print(f"[timing] K1 on {name} R={bx.shape[1]}: {ms:.4f} ms of device time per launch; "
+              f"bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it)")
 
     # -- 10. K1-bwd against its plain version --------------------------------
     k1_backward_checks(dev, levels, props.boxes.contiguous())
@@ -3682,7 +3235,7 @@ def main() -> None:
                 ("16 (in-graph ground plane)", lambda: ground_phase(dev)),
                 ("17-18 (IoU3D and RANSAC, card vs CPU)", lambda: geometry_phases(dev)),
                 ("31 (the ops layer's last functions, card vs CPU)",
-                 lambda: ops_phase(dev, det31, ground31, card)),
+                 lambda: ops_phase(dev, det31, ground31)),
                 ("19 (eval CLI)", lambda: eval_phase(dev, cli_out)),
                 ("20 (K1 at the eval batch's shapes)", lambda: eval_k1_phase(dev, cli_out)),
                 ("21 (evaluator, card vs CPU)", lambda: evaluator_phase(dev, rep["19"][1])),
@@ -3731,11 +3284,8 @@ def main() -> None:
                              f"eval CLI ({ev['batches']} x b{EVAL_BATCH})": ev["launches"],
                              f"DP-step ({DP_RANKS} ranks x {DP_STEPS} steps of "
                              f"b{DP_BATCH // DP_RANKS})": dp["k1"], **new_k1},
-        "max_abs_err": max(max(max_err.values()), ev_k1["max_abs_err"]),
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": bound_by, "library_ms": tot["library_ms"],
-        "eval_batch": {k: ev_k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms")}},
+        "max_abs_err": max(max(max_err.values()), ev_k1["max_abs_err"]), **tot,
+        "eval_batch": {k: ev_k1[k] for k in ("ms", "bound_ms")}},
         dict(k1_bwd, launches=k1_bwd["launches"] + dp["k1_bwd"] + sum(new_bwd.values()),
              launches_by_path={"training step (6 x b25)": k1_bwd["launches"],
                                f"DP-step ({DP_RANKS} ranks x {DP_STEPS} steps of "
@@ -3752,8 +3302,8 @@ def main() -> None:
                  "phase 33 (the b25 step's calls, checks and timing)": bn_phase_launches,
                  "phases 4-11": bn_before_12,
                  f"training step ({1 + TRAIN_STEPS} x b{TRAIN_BATCH})": bn_step_launches,
-                 "the other one-process training steps (phase 12's profiled and kept steps, "
-                 "phases 15-31)": bn_after_12 - bn_step_launches})]}))
+                 "the other one-process training steps (phase 12's kept step, phases "
+                 "15-31)": bn_after_12 - bn_step_launches})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

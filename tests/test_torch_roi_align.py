@@ -13,8 +13,7 @@ import torch
 from weakcube_tpu.ops import roi_align as j_ra
 from weakcube_tpu_torch.ops import roi_align as t_ra
 from weakcube_tpu_torch.ops import roi_align_cuda
-from torch_roi_boxes import (BOX_SETS, box_set, edge_boxes, elongated_boxes, level_boxes,
-                             subpixel_boxes)
+from torch_roi_boxes import BOX_SETS, box_set, edge_boxes
 
 STRIDES = (4, 8, 16, 32, 64)
 
@@ -117,63 +116,3 @@ def test_wrapper_refuses_beyond_the_kernels_limits(limit):
         roi_align_cuda._check(ok, boxes.to(meta), STRIDES[:1], 7, 2)
         with pytest.raises(ValueError, match="32-bit"):
             roi_align_cuda._check(big, boxes.to(meta), STRIDES[:1], 7, 2)
-
-
-def test_footprint_counts_the_kernels_staging():
-    """roi_align_cuda.footprint, which chip_smoke.py's bounds use: a
-    sub-pixel RoI stages and touches 2 x 2 pixels; a RoI 128 feature units
-    long stages the 2P = 28 touched columns, not its 129-column run (and its
-    3-row compact run); a 14-unit square stages its compact 15 x 15 run; the
-    union of touched pixels is counted once however many RoIs share them."""
-    feats = [torch.zeros((1, 128 // s, 128 // s, 8)) for s in STRIDES]
-    boxes = torch.tensor([[[30.0, 30.0, 30.2, 30.2], [0.0, 40.0, 512.0, 44.0],
-                           [4.0, 4.0, 60.0, 60.0], [4.0, 4.0, 60.0, 60.0]]])
-    fp = roi_align_cuda.footprint(feats, boxes, STRIDES, 7, 2)
-    assert fp["levels"].tolist() == [[2, 2, 2, 2]]
-    assert fp["ny"].tolist() == [[2, 3, 15, 15]] and fp["nx"].tolist() == [[2, 28, 15, 15]]
-    assert fp["staged_bytes"] == (4 + 3 * 28 + 2 * 225) * 8 * 4
-    assert fp["out_bytes"] == 4 * 49 * 8 * 4 and fp["gather_bytes"] == 16 * fp["out_bytes"]
-    # the two equal RoIs touch the same 15 x 15 pixels; the long one touches
-    # 3 rows x 28 columns
-    assert 225 * 32 < fp["touched_bytes"] <= (4 + 84 + 225) * 32
-
-
-@pytest.mark.parametrize("tile", [16, 8])
-def test_footprint_counts_the_gathers_tile_overlaps(tile):
-    """footprint's (RoI, tile) pairs, which chip_smoke.py's K1-bwd floor
-    uses, against a brute force over the plain version's corners
-    (ops/roi_align.py::_corners): a RoI meets every tile of its level that
-    the bounding box of its touched pixels meets. Sub-pixel, elongated and
-    tile-edge RoIs on the ragged levels of a 200 x 120 canvas (p2 50 x 30)."""
-    size_h, size_w = 200, 120
-    shapes = [(2, -(-size_h // s), -(-size_w // s), 4) for s in STRIDES]
-    feats = [torch.zeros(s) for s in shapes]
-    rng = np.random.default_rng(13)
-    boxes = np.concatenate([
-        np.array([[[30.0, 30.0, 30.2, 30.2],      # sub-pixel
-                   [0.0, 40.0, 120.0, 44.0],      # elongated across every p2 tile column
-                   [2.0, 0.0, 6.0, 200.0],        # ... and every p2 tile row
-                   [62.0, 62.0, 66.5, 66.5],      # lines 15 and 16 of p2: a tile edge
-                   [66.5, 2.5, 70.0, 20.0],       # starts on line 16 of p2
-                   [100.0, 180.0, 121.0, 201.0],  # the ragged corner
-                   [-30.0, -30.0, 150.0, 230.0]]] * 2, np.float32),   # past every border, p3
-        elongated_boxes(rng, 2, 10, 120), subpixel_boxes(rng, 2, 6, 120),
-        level_boxes(rng, 2, 8, 120)], 1)
-    boxes = torch.from_numpy(np.ascontiguousarray(boxes, np.float32))
-    fp = roi_align_cuda.footprint(feats, boxes, STRIDES, 7, 2, tile=tile)
-    hw = [s[1:3] for s in shapes]
-    offs = np.cumsum([0] + [h * w for h, w in hw])
-    pix = torch.stack([idx for idx, _ in t_ra._corners(boxes, hw, STRIDES, 7, 2, 2)], -1)
-    pix = pix.reshape(2, boxes.shape[1], -1).numpy()
-    want = 0
-    for b in range(2):
-        for r in range(boxes.shape[1]):
-            l = int(np.searchsorted(offs, pix[b, r, 0], side="right")) - 1
-            h, w = hw[l]
-            y, x = np.divmod(pix[b, r] - offs[l], w)
-            assert (fp["levels"][b, r] - 2).item() == l
-            want += sum(y.min() < ty + tile and y.max() >= ty and x.min() < tx + tile
-                        and x.max() >= tx for ty in range(0, h, tile) for tx in range(0, w, tile))
-    assert fp["tile_overlaps"] == want
-    assert fp["tile_g_bytes"] == want * 49 * 4 * 4
-    assert want > boxes.shape[1] * 2   # the long RoIs meet several tiles each

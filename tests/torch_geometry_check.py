@@ -99,8 +99,7 @@ def ransac_card_vs_cpu(dev, B, H_img=480, W_img=640, hypotheses=1000, seed=0):
     fit_cos = np.abs(np.einsum("bi,bi->b", eq_g[:, :3].double().numpy(), true_n))
     return {"images": B, "points": int(pts.shape[1]), "same_winner": same,
             "max_count_diff": int(count_diff.max()), "worst_same_err": worst_same,
-            "worst_cos_other": worst_cos, "min_cos_to_truth": float(fit_cos.min()),
-            "inputs": (pts.to(dev), valid.to(dev), draws.to(dev))}
+            "worst_cos_other": worst_cos, "min_cos_to_truth": float(fit_cos.min())}
 
 
 def _rotations(rng, n):
@@ -151,5 +150,4 @@ def iou3d_card_vs_cpu(dev, n, seed=0):
     # ROADMAP.md Queue C): some identical pairs read below 1 on both devices
     off = int(((want[0::5] - 1).abs() > 1e-5).sum())
     return {"pairs": n, "max_abs_err": err, "mean_iou": float(want.mean()),
-            "identical_below_1": off, "identical": int(want[0::5].numel()),
-            "inputs": (c1.to(dev), c2.to(dev))}
+            "identical_below_1": off, "identical": int(want[0::5].numel())}

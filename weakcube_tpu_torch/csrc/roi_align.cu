@@ -26,8 +26,7 @@
 // staging below moves each RoI's window from L2 into shared memory once:
 // the sum over RoIs of ny * nx * C * 2 bytes, 0.28 GB for those proposals
 // against the 3.2 GB of corner reads that a per-sample gather makes
-// (ops/roi_align_cuda.py::footprint counts both from the boxes;
-// chip_smoke.py prints them).
+// (both counted from the boxes; PERF.md).
 //
 // Diagnosis of the previous design (one block per RoI, threads over
 // channels, each output value gathered from 16 bilinear corners straight
@@ -564,7 +563,7 @@ extern "C" int roi_align_forward(int dtype, int vec, const void* const* level_pt
 //
 // Diagnosis of the previous design (one block per RoI adding into zeroed
 // float32 level buffers with float4 atomics, then a cast to bf16; on an
-// H100 at the training step's inputs, tools/bench_k1_bwd.py split, PERF.md):
+// H100 at the training step's inputs, each pass timed alone, PERF.md):
 // per box-pooler call the zero fill took 0.181 ms, the kernel 0.569 and the
 // cast 0.287; per cube-pooler call 0.196, 0.172 and 0.286. The two passes
 // over the whole float32 levels cost ~0.47 ms per call whatever the RoIs,
@@ -606,8 +605,8 @@ extern "C" int roi_align_forward(int dtype, int vec, const void* const* level_pt
 //   * On an H100 at the training step's inputs, 16 x 16 tiles of 64
 //     channels (a warp of 4 columns x 8 vectors, whose lanes' column loops
 //     diverge), batches of 3 RoIs and the column loop unrolled were each
-//     slower (tools/bench_k1_bwd.py variants times them against this
-//     source; PERF.md). Slower in development and not kept: g read
+//     slower (each timed against this source on the same inputs;
+//     PERF.md). Slower in development and not kept: g read
 //     straight from L2 instead of staged, a thread per pixel with all of a
 //     chunk's channels (its unseparated sum also left the float32
 //     tolerance on p6), 32-channel chunks, 512-thread blocks, more blocks

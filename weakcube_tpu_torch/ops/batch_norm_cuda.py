@@ -30,12 +30,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .cuda_build import CSRC_DIR, build_library
+from .cuda_build import CSRC_DIR, KernelLibrary
 
 SOURCE = os.path.join(CSRC_DIR, "batch_norm.cu")
 THREADS = 256          # = csrc/batch_norm.cu's kThreads
@@ -45,33 +45,16 @@ BLOCKS_PER_SM = 2      # blocks of a launch per SM, all column chunks together
 MAX_GRID_Y = 65535     # CUDA's limit on a grid's second dimension
 REDUCE_THREADS = 512   # PyTorch's reductions' MAX_NUM_THREADS (ATen/native/cuda/Reduce.cuh)
 
-_lib: Optional[ctypes.CDLL] = None
 _devices = {}  # device index -> [its counters, SMs, threads an SM]: see _device
-build_log = ""
 
-
-def build() -> str:
-    """Compile csrc/batch_norm.cu into build/ unless this source's library
-    is there already; returns the library's path. The compiler's report
-    (registers, spills) is kept in `build_log`."""
-    global build_log
-    lib_path, log = build_library(SOURCE)
-    build_log = log or build_log
-    return lib_path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        i, ll, f, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
-        lib.bn_train_forward.argtypes = [i, i, i, p, p, ll, i, i, ll, i, i, p, f, p, p, p, p,
-                                         f, f, f, p, p, p, p, p]
-        lib.bn_train_forward.restype = i
-        lib.bn_train_backward.argtypes = [i, i, p, p, p, ll, i, i, ll, i, i, p, p, p, p, p, p]
-        lib.bn_train_backward.restype = i
-        _lib = lib
-    return _lib
+_i, _ll, _f, _p = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
+_library = KernelLibrary(SOURCE, {
+    "bn_train_forward": ([_i, _i, _i, _p, _p, _ll, _i, _i, _ll, _i, _i, _p, _f, _p, _p, _p, _p,
+                          _f, _f, _f, _p, _p, _p, _p, _p], _i),
+    "bn_train_backward": ([_i, _i, _p, _p, _p, _ll, _i, _i, _ll, _i, _i, _p, _p, _p, _p, _p,
+                           _p], _i)})
+build = _library.build
+__getattr__ = _library.module_attr  # build_log: the compiler's report
 
 
 class Plan(NamedTuple):
@@ -238,7 +221,7 @@ def _forward(x, weight, bias, running_mean, running_var, momentum: float, eps: f
     small = torch.empty((6, C), dtype=torch.float32, device=x.device)
     staging = torch.empty(q.grid_x * q.ctas * q.bw * 2 * q.ovs if q.ctas > 1 else 1,
                           dtype=torch.float32, device=x.device)
-    lib = _load()
+    lib = _library.load()
     with torch.cuda.device(x.device):
         err = lib.bn_train_forward(
             int(x.dtype == torch.bfloat16), p.vec, q.ovs, x.data_ptr(), y.data_ptr(), rows, C,
@@ -266,7 +249,7 @@ def batch_norm_train_backward(g: torch.Tensor, x: torch.Tensor, weight: torch.Te
     counters = _device(x.device, p.grid_y)[0]
     grads = torch.empty((4, C), dtype=torch.float32, device=x.device)
     ws = torch.empty(2 * p.grid_x * C, dtype=torch.float64, device=x.device)
-    lib = _load()
+    lib = _library.load()
     with torch.cuda.device(x.device):
         err = lib.bn_train_backward(
             int(x.dtype == torch.bfloat16), p.vec, g.data_ptr(), x.data_ptr(),

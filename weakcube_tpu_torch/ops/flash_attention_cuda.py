@@ -16,42 +16,23 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from .attention import attention as plain
-from .cuda_build import CSRC_DIR, build_library
+from .cuda_build import CSRC_DIR, KernelLibrary
 
 SOURCE = os.path.join(CSRC_DIR, "flash_attention.cu")
 HEAD_DIM = 64
 MAX_BATCH_HEADS = 65535  # the grid's y extent
 
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""
-
-
-def build() -> str:
-    """Compile csrc/flash_attention.cu into build/ unless this source's
-    library is there already; returns the library's path. The compiler's
-    report (registers, spills) is kept in `build_log`."""
-    global build_log
-    lib_path, log = build_library(SOURCE)
-    build_log = log or build_log
-    return lib_path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        P = ctypes.c_void_p
-        lib.flash_attention_forward.argtypes = [
-            ctypes.c_int, P, P, P, P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P]
-        lib.flash_attention_forward.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_p = ctypes.c_void_p
+_library = KernelLibrary(SOURCE, {"flash_attention_forward": (
+    [ctypes.c_int, _p, _p, _p, _p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _p], ctypes.c_int)})
+build = _library.build
+__getattr__ = _library.module_attr  # build_log: the compiler's report
 
 
 def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -96,7 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, N, d = q.shape
     out = torch.empty((B, N, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _strides(t)))
-    lib = _load()
+    lib = _library.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_forward(

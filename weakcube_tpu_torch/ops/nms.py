@@ -28,14 +28,11 @@ import torch
 
 from ..utils.trace import span
 from .boxes import pairwise_iou
-from .cuda_build import CSRC_DIR, build_library
+from .cuda_build import CSRC_DIR, KernelLibrary
 
 NEG_INF = -1e10
 SOURCE = os.path.join(CSRC_DIR, "nms.cu")
 MAX_N = 10240  # = csrc/nms.cu's kMaxN: one problem's boxes in a block's shared memory
-
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -45,25 +42,11 @@ def topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def build() -> str:
-    """Compile csrc/nms.cu into build/ unless this source's library is there
-    already; returns the library's path. The compiler's report (registers,
-    spills) is kept in `build_log`."""
-    global build_log
-    lib_path, log = build_library(SOURCE)
-    build_log = log or build_log
-    return lib_path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.nms_forward.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        lib.nms_forward.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_library = KernelLibrary(SOURCE, {"nms_forward": (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    ctypes.c_int)})
+build = _library.build
+__getattr__ = _library.module_attr  # build_log: the compiler's report
 
 
 def _rank_order(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -136,9 +119,9 @@ def launch(boxes, order, valid, keep, iou_threshold: float) -> None:
     `nms_mask.launches`."""
     M, n = keep.shape
     with torch.cuda.device(boxes.device):
-        err = _load().nms_forward(boxes.data_ptr(), order.data_ptr(), valid.data_ptr(),
-                                  keep.data_ptr(), M, n, iou_threshold,
-                                  torch.cuda.current_stream().cuda_stream)
+        err = _library.load().nms_forward(boxes.data_ptr(), order.data_ptr(), valid.data_ptr(),
+                                          keep.data_ptr(), M, n, iou_threshold,
+                                          torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"nms_forward failed with CUDA error {err}")
     nms_mask.launches += 1

@@ -12,19 +12,17 @@ get no gradient.
 The kernels are built at first use with nvcc for sm_90a into `build/` at the
 repository root (ops/cuda_build.py) and loaded with ctypes.
 `multilevel_roi_align.launches` and `roi_align_backward.launches` count
-kernel launches. `footprint` counts the bytes K1's staging plan moves, the
-pixels the boxes touch and the (RoI, tile) pairs of K1-bwd's gather.
+kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional, Sequence
+from typing import Sequence
 
-import numpy as np
 import torch
 
-from .cuda_build import CSRC_DIR, build_library
+from .cuda_build import CSRC_DIR, KernelLibrary
 from .roi_align import multilevel_roi_align as plain
 from .roi_align import multilevel_roi_align_backward as plain_backward
 
@@ -32,39 +30,20 @@ SOURCE = os.path.join(CSRC_DIR, "roi_align.cu")
 MAX_LEVELS = 8
 MAX_SAMPLES = 40  # out_size * sampling_ratio: the kernel's staged window is (2P)^2 pixels
 
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""
-
-
-def build() -> str:
-    """Compile csrc/roi_align.cu into build/ unless this source's library is
-    there already; returns the library's path. The compiler's report
-    (registers, spills) is kept in `build_log`."""
-    global build_log
-    lib_path, log = build_library(SOURCE)
-    build_log = log or build_log
-    return lib_path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        P = ctypes.POINTER
-        lib.roi_align_forward.argtypes = [
-            ctypes.c_int, ctypes.c_int, P(ctypes.c_void_p), P(ctypes.c_longlong),
-            P(ctypes.c_int), P(ctypes.c_int), P(ctypes.c_float), ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.roi_align_forward.restype = ctypes.c_int
-        lib.roi_align_backward.argtypes = [
-            ctypes.c_int, ctypes.c_int, P(ctypes.c_void_p), P(ctypes.c_int),
-            P(ctypes.c_int), P(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.roi_align_backward.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_P = ctypes.POINTER
+_library = KernelLibrary(SOURCE, {
+    "roi_align_forward": (
+        [ctypes.c_int, ctypes.c_int, _P(ctypes.c_void_p), _P(ctypes.c_longlong),
+         _P(ctypes.c_int), _P(ctypes.c_int), _P(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "roi_align_backward": (
+        [ctypes.c_int, ctypes.c_int, _P(ctypes.c_void_p), _P(ctypes.c_int), _P(ctypes.c_int),
+         _P(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p], ctypes.c_int)})
+build = _library.build
+__getattr__ = _library.module_attr  # build_log: the compiler's report
 
 
 def _check(features: Sequence[torch.Tensor], boxes: torch.Tensor, strides,
@@ -130,7 +109,7 @@ def _forward(features: Sequence[torch.Tensor], boxes: torch.Tensor, strides,
     if C % vec or any(t.data_ptr() % 16 for t in (*features, out)):
         vec = 1
     L = len(features)
-    lib = _load()
+    lib = _library.load()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.roi_align_forward(
@@ -175,7 +154,7 @@ def roi_align_backward(g: torch.Tensor, boxes: torch.Tensor, level_shapes,
     if C % vec or any(t.data_ptr() % 16 for t in (g, *grads)):
         vec = 1
     L = len(shapes)
-    lib = _load()
+    lib = _library.load()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.roi_align_backward(
@@ -226,69 +205,3 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
 
 
 multilevel_roi_align.launches = 0
-
-
-def footprint(levels, boxes, strides, out_size: int, sr: int, min_level: int = 2,
-              tile: int = 8):
-    """The kernels' work plans, counted on the boxes' device (for the bounds
-    that chip_smoke.py prints; nothing here launches a kernel). Per RoI and
-    axis K1 stages the compact run of lines between the lowest and highest
-    touched line when it holds at most 2P lines (P = out_size * sr) and no
-    bin spans more than 2 * sr of them, else the 2P touched lines themselves.
-    K1-bwd's blocks each own a tile x tile pixel tile of a level (per
-    channel chunk) and read the g of every RoI on that level whose line
-    range [lo of its first sample, hi of its last] meets the tile on both
-    axes.
-    Returns a dict of tensors and totals: `levels` and `ny`, `nx` (B, R)
-    staged lines, `staged_bytes` (sum of ny * nx * C * itemsize: what the
-    staging moves from L2 to the SMs), `touched_bytes` (the union over RoIs
-    of the pixels whose values are read, per image and level, times
-    C * itemsize), `out_bytes`, `gather_bytes` (sr^2 * 4 corner reads per
-    output value, what a per-sample gather loads), `tile_overlaps` (the
-    (RoI, tile) pairs of K1-bwd, the same in every channel chunk) and
-    `tile_g_bytes` (what K1-bwd's blocks read of g: each pair reads the
-    RoI's out_size^2 * C values once)."""
-    dev = boxes.device
-    B, R = boxes.shape[:2]
-    C, elt = levels[0].shape[-1], levels[0].element_size()
-    P = out_size * sr
-    hs = torch.tensor([f.shape[1] for f in levels], device=dev)
-    ws = torch.tensor([f.shape[2] for f in levels], device=dev)
-    offs = torch.tensor(np.cumsum([0] + [f.shape[1] * f.shape[2] for f in levels])[:-1],
-                        device=dev)
-    inv = torch.tensor([1.0 / s for s in strides], device=dev)
-    w = (boxes[..., 2] - boxes[..., 0]).clamp(min=0.0)
-    h = (boxes[..., 3] - boxes[..., 1]).clamp(min=0.0)
-    lvl = torch.floor(4 + torch.log2(torch.sqrt(w * h) / 224.0 + 1e-8))
-    lvl = lvl.clamp(min_level, min_level + len(levels) - 1).long() - min_level
-    scale, H, W = inv[lvl], hs[lvl], ws[lvl]
-    grid = torch.from_numpy((np.arange(P, dtype=np.float32) + np.float32(0.5))
-                            / np.float32(P)).to(dev)
-
-    def lines(a0, a1, size):
-        c0 = a0 * scale - 0.5
-        ln = (a1 * scale - 0.5 - c0).clamp(min=1e-6)
-        c = torch.minimum((c0[..., None] + ln[..., None] * grid).clamp(min=0.0),
-                          (size[..., None] - 1).float())
-        lo = torch.floor(c).long()
-        hi = torch.minimum(lo + 1, size[..., None] - 1)
-        run = hi[..., -1] - lo[..., 0] + 1
-        band = hi[..., sr - 1::sr] - lo[..., ::sr] + 1      # lines per bin
-        rect = (run <= 2 * P) & (band <= 2 * sr).all(-1)
-        tiles = hi[..., -1] // tile - lo[..., 0] // tile + 1
-        return (torch.where(rect, run, torch.full_like(run, 2 * P)), torch.cat([lo, hi], -1),
-                tiles)
-
-    ny, rows, tiles_y = lines(boxes[..., 1], boxes[..., 3], H)
-    nx, cols, tiles_x = lines(boxes[..., 0], boxes[..., 2], W)
-    pix = offs[lvl][..., None, None] + rows[..., :, None] * W[..., None, None] + cols[..., None, :]
-    mask = torch.zeros((B, int(offs[-1]) + levels[-1].shape[1] * levels[-1].shape[2]),
-                       dtype=torch.bool, device=dev)
-    mask.scatter_(1, pix.reshape(B, -1), True)
-    n_out = B * R * out_size * out_size * C
-    overlaps = int((tiles_y * tiles_x).sum())
-    return {"ny": ny, "nx": nx, "levels": lvl + min_level,
-            "staged_bytes": int((ny * nx).sum()) * C * elt,
-            "touched_bytes": int(mask.sum()) * C * elt,
-            "out_bytes": n_out * elt, "gather_bytes": n_out * sr * sr * 4 * elt,
-            "tile_overlaps": overlaps, "tile_g_bytes": overlaps * out_size * out_size * C * elt}
