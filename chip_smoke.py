@@ -18,8 +18,9 @@ step), profiles and library yardsticks are the benchmark's
 Phases, in the order they run:
   1. print the card's name and power limit (nvidia-smi);
   2. build the ROIAlign (K1 and K1-bwd, one source), flash-attention (K2),
-     NMS and BatchNorm CUDA kernels from weakcube_tpu_torch/csrc, one nvcc
-     each, and the evaluator's greedy matcher (host C++, g++), in parallel;
+     NMS, BatchNorm and bilinear resize CUDA kernels from
+     weakcube_tpu_torch/csrc, one nvcc each, and the evaluator's greedy
+     matcher (host C++, g++), in parallel;
   3. hold K1 against its plain PyTorch version at the main path's shapes
      (b8, levels 128^2..8^2 x 256, R = 1000 and 100), with edge-case boxes
      (past the borders, sub-pixel, elongated, hugging a border, empty,
@@ -63,6 +64,13 @@ Phases, in the order they run:
      sets (edge cases, p3-p5 squares, tests/torch_roi_boxes.py), the
      detection forward's own pyramid and proposals, and no RoIs; a second
      launch on the same inputs must give the same bits;
+ 34. the DPT head's bilinear resize kernel (csrc/bilinear_resize.cu) at the
+     depth cell's five resizes (b16, bf16: 19^2 -> 37^2, 37 -> 74, 74 -> 148
+     and 148 -> 296 at C = 256, 296 -> 518 at C = 128) held to ATen's
+     F.interpolate on the same tensors bit for bit (at most one bf16 ulp
+     apart, else the run fails), a second launch giving the same bits; its
+     device time per launch beside the bytes the resize needs (input read
+     once, output written once) over HBM bandwidth;
   7. hold K2 against its plain PyTorch version at B16 H16 d64 with
      N = 1, 50, 63, 64, 65, 127, 128, 129, 197 and 1370 (the tile edges and
      ragged tiles), in bfloat16 and float32, on contiguous q, k, v and on
@@ -72,10 +80,10 @@ Phases, in the order they run:
      (random weights from a seed) at 518 px through
      data/generate_depth_maps.py::generate() on 32 synthetic 640x480 images
      (two batches of 16); check the 32 depth maps and that K2 launched 24
-     times per forward; hold K2 against the plain version on one block's
-     own q, k, v from that run (contiguous copies and the projection's own
-     views); a small float32 ViT-S on the card against the CPU at 98 and
-     196 px; the maps stay for phase 29;
+     times per forward and the DPT head's resize kernel 5; hold K2 against
+     the plain version on one block's own q, k, v from that run (contiguous
+     copies and the projection's own views); a small float32 ViT-S on the
+     card against the CPU at 98 and 196 px; the maps stay for phase 29;
   9. K2's device time per launch on block 11's q, k, v (contiguous and the
      projection's views) beside its bound (k2_bound.flash_attention_bound_s);
      one B16 depth forward under the profiler launches at most 28 layout
@@ -201,9 +209,9 @@ Phases, in the order they run:
      at 4, --resume to 8 under the profiler (rank 0's NCCL kernels per step
      by kind), images/s, each rank's data, step and mapper ms; the eval CLI
      sharded over all cards on that checkpoint;
- 14. print the kernels line (K1, K1-bwd, K2, NMS, BN: their launches on every
-     path above, each counted from 0 before it, their largest errors, device
-     ms and bounds) and, last, {"ok": true, "device": {...}}.
+ 14. print the kernels line (K1, K1-bwd, K2, NMS, BN, the resize: their
+     launches on every path above, each counted from 0 before it, their
+     largest errors, device ms and bounds) and, last, {"ok": true, "device": {...}}.
 
 The CLI phases before 24 run one process (TPU.MESH_SHAPE [1]), so that the
 script does the same on a machine with several cards.
@@ -236,6 +244,12 @@ NMS_SOURCE = "weakcube_tpu_torch/csrc/nms.cu"
 BN_REPLACES = ("none: flax's BatchNorm in weakcube_tpu/models/backbone is XLA; the port's "
                "plain chain is models/layers.py::BatchNorm2d")
 BN_SOURCE = "weakcube_tpu_torch/csrc/batch_norm.cu"
+RESIZE_REPLACES = ("none: the JAX package's `_resize` (weakcube_tpu/data/pseudo_gt/"
+                   "depth_anything_v2.py:235) is two XLA matrix products; the port's head "
+                   "called ATen's upsample_bilinear2d")
+RESIZE_SOURCE = "weakcube_tpu_torch/csrc/bilinear_resize.cu"
+# (C, side in, side out) of the DPT head's resizes at ViT-L, 518 px
+DPT_RESIZES = ((256, 19, 37), (256, 37, 74), (256, 74, 148), (256, 148, 296), (128, 296, 518))
 DEPTH_BATCH, DEPTH_SIZE, DEPTH_IMAGES = 16, 518, 32
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_GT, TRAIN_STEPS = 25, 512, 16, 5
 
@@ -424,9 +438,10 @@ def depth_phases(dev, artifacts_root):
     from harness import k2_bound
     from weakcube_tpu_torch.data import synthetic
     from weakcube_tpu_torch.data.generate_depth_maps import generate, load_model
-    from weakcube_tpu_torch.ops import flash_attention_cuda, roi_align_cuda
+    from weakcube_tpu_torch.ops import bilinear_resize_cuda, flash_attention_cuda, roi_align_cuda
 
     K2 = flash_attention_cuda.flash_attention
+    resize = bilinear_resize_cuda.bilinear_resize
     plain = flash_attention_cuda.plain
     scale = 64 ** -0.5
     # bf16: P and O are each rounded to bf16 once, in other places than the
@@ -471,17 +486,20 @@ def depth_phases(dev, artifacts_root):
     hook = attn.qkv.register_forward_hook(grab_qkv)
     records = synthetic.make_dataset(DEPTH_IMAGES)
     out_dir = os.path.join(artifacts_root, "depth_maps")
-    roi_align_cuda.multilevel_roi_align.launches = K2.launches = 0
+    roi_align_cuda.multilevel_roi_align.launches = K2.launches = resize.launches = 0
     generate(records, out_dir, batch_size=DEPTH_BATCH,
              image_loader=lambda r: synthetic.render_image(r["_scene"]), model=model)
     torch.cuda.synchronize()
-    k2_launches = K2.launches
+    k2_launches, resize_launches = K2.launches, resize.launches
     hook.remove()
     n_fwd = -(-DEPTH_IMAGES // DEPTH_BATCH)
     depth_blocks = len(model.pretrained.blocks)
     if k2_launches != depth_blocks * n_fwd:
         fail(f"K2 launched {k2_launches} times in {n_fwd} forwards, expected "
              f"{depth_blocks} per forward")
+    if resize_launches != 5 * n_fwd:
+        fail(f"the resize kernel launched {resize_launches} times in {n_fwd} forwards, expected "
+             "5 per forward (the DPT head's four fusion blocks and its output)")
     stds = []
     for r in records:
         path = os.path.join(out_dir, f"{r['image_id']}.npz")
@@ -499,7 +517,8 @@ def depth_phases(dev, artifacts_root):
         fail(f"degenerate depth maps (least std {min(stds):.2e} m)")
     print(f"[depth] generate(): {len(records)} maps of {records[0]['height']}x"
           f"{records[0]['width']} float16; depth std {min(stds):.4f}-{max(stds):.4f} m; K2 "
-          f"launches {k2_launches} ({depth_blocks} per forward)")
+          f"launches {k2_launches} ({depth_blocks} per forward), resize kernel launches "
+          f"{resize_launches} (5 per forward)")
     B_, N_, _ = captured[0].shape
     views = captured[0].reshape(B_, N_, 3, attn.heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
     q, k, v = (t.contiguous() for t in views)
@@ -545,7 +564,8 @@ def depth_phases(dev, artifacts_root):
              "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
              "launches": k2_launches, "max_abs_err": max(errs), "ms": ms, "views_ms": views_ms,
              "bound_ms": bound},
-            {"records": records, "depth_dir": out_dir, "k2_launches": k2_launches})
+            {"records": records, "depth_dir": out_dir, "k2_launches": k2_launches,
+             "resize_launches": resize_launches})
 
 
 PGT_GDINO_SIDE = 768     # GroundingDINO's input square in the pipeline
@@ -2954,6 +2974,69 @@ def bn_phase(dev) -> dict:
             "launches_a_step": per_step, **tot}
 
 
+def bf16_ulps(a, b) -> int:
+    """The widest gap between two bf16 tensors of one shape, in bf16 steps
+    (their bit patterns ordered as the numbers are)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def resize_phase(dev) -> dict:
+    """Phase 34: the DPT head's bilinear resize kernel (csrc/bilinear_resize.cu)
+    at the depth cell's five resizes (b16, bf16): held to ATen's
+    F.interpolate on the same tensors (at most one bf16 step apart, else the
+    run fails; bit for bit is the design), a second launch giving the same
+    bits, and its device time per launch beside the bytes the resize needs
+    (input read once, output written once) over HBM bandwidth. Returns the
+    kernels-line entry (ms a forward)."""
+    import torch
+    import torch.nn.functional as F
+    from harness import bounds
+    from weakcube_tpu_torch.ops import bilinear_resize_cuda as brc
+    for line in brc.build_log.splitlines():
+        if any(w in line for w in ("registers", "spill")):
+            print(f"  ptxas: {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    tot = {"ms": 0.0, "bound_ms": 0.0}
+    entry = {"name": "bilinear_resize (the DPT head's align_corners resizes), the b16 depth "
+                     "forward's five", "route": "cuda", "source": RESIZE_SOURCE,
+             "replaces": RESIZE_REPLACES, "bound_by": "bytes", "max_ulps": 0, "shapes": {}}
+    for C, n_in, n_out in DPT_RESIZES:
+        x = torch.randn((DEPTH_BATCH, n_in, n_in, C), generator=gen, device=dev).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            got = brc.bilinear_resize(x, (n_out, n_out))
+            want = F.interpolate(x, size=(n_out, n_out), mode="bilinear", align_corners=True)
+        ulps = bf16_ulps(got, want)
+        n_diff = int((got != want).sum())
+        if ulps > 1:
+            fail(f"resize {n_in}^2 -> {n_out}^2 C={C}: the kernel is {ulps} bf16 steps off ATen")
+        out = torch.empty_like(got)
+        ms = kernel_device_ms(lambda: brc.launch(x, out), 20)
+        if not torch.equal(out, got):
+            fail(f"resize {n_in}^2 -> {n_out}^2 C={C}: a second launch gave other bits")
+        bound = (x.numel() + got.numel()) * x.element_size() / bounds.PEAK_BYTES_PER_S * 1e3
+        tot["ms"] += ms
+        tot["bound_ms"] += bound
+        entry["max_ulps"] = max(entry["max_ulps"], ulps)
+        name = f"{n_in}->{n_out} C{C}"
+        entry["shapes"][name] = {"ms": ms, "bound_ms": bound, "elements_off": n_diff}
+        same = "equal to ATen bit for bit" if not n_diff else \
+            f"{n_diff} elements one bf16 step off ATen"
+        print(f"[resize] b{DEPTH_BATCH} {n_in}^2 -> {n_out}^2 C={C} bf16 (vec "
+              f"{brc.vec_width(x)}): {same}; {ms:.4f} ms device per launch, least bytes "
+              f"{bound:.4f} ms ({100 * bound / ms:.1f}%)")
+        del x, got, want, out
+    print(f"[resize] a b{DEPTH_BATCH} forward's five: {tot['ms']:.4f} ms device, least bytes "
+          f"{tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}%)")
+    torch.cuda.empty_cache()
+    return dict(entry, **tot)
+
+
 def main() -> None:
     try:
         import torch
@@ -2971,7 +3054,7 @@ def main() -> None:
         from weakcube_tpu_torch.evaluation import _native as eval_native
         from weakcube_tpu_torch.models.roi_heads import FPN_STRIDES
         from weakcube_tpu_torch.ops import flash_attention_cuda, roi_align_cuda
-        from weakcube_tpu_torch.ops import batch_norm_cuda
+        from weakcube_tpu_torch.ops import batch_norm_cuda, bilinear_resize_cuda
         from weakcube_tpu_torch.ops import nms as nms_ops
         from weakcube_tpu_torch.ops.cuda_build import build_host_library
         from harness import bounds  # noqa: F401
@@ -2994,13 +3077,14 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # -- 2. build the four kernel sources, one nvcc each, and the evaluator's
+    # -- 2. build the five kernel sources, one nvcc each, and the evaluator's
     # matcher (g++), in parallel, so that no later phase's time holds a compile
     t = time.time()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = [(name, mod, pool.submit(mod.build))
                   for name, mod in (("K1", roi_align_cuda), ("K2", flash_attention_cuda),
-                                    ("NMS", nms_ops), ("BN", batch_norm_cuda))]
+                                    ("NMS", nms_ops), ("BN", batch_norm_cuda),
+                                    ("resize", bilinear_resize_cuda))]
         matcher = pool.submit(build_host_library, eval_native.SOURCE)
         for name, mod, fut in builds:
             lib_path = fut.result()
@@ -3168,6 +3252,13 @@ def main() -> None:
     del model, feats, levels, calls, det, det2d, props
     torch.cuda.empty_cache()
 
+    # -- 34. the DPT head's resize kernel at the depth cell's shapes ----------
+    t = time.time()
+    resize_before = bilinear_resize_cuda.bilinear_resize.launches
+    resize_entry = resize_phase(dev)
+    resize_phase_launches = bilinear_resize_cuda.bilinear_resize.launches - resize_before
+    print(f"[phase] 34 (the DPT head's resize kernel) took {time.time() - t:.1f} s")
+
     # -- 7.-9. K2 and the depth pseudo-GT path; 29. the ground pseudo-GT
     # pipeline from phase 8's depth maps ---------------------------------------
     import shutil
@@ -3303,7 +3394,12 @@ def main() -> None:
                  "phases 4-11": bn_before_12,
                  f"training step ({1 + TRAIN_STEPS} x b{TRAIN_BATCH})": bn_step_launches,
                  "the other one-process training steps (phase 12's kept step, phases "
-                 "15-31)": bn_after_12 - bn_step_launches})]}))
+                 "15-31)": bn_after_12 - bn_step_launches}),
+        dict(resize_entry, launches=resize_phase_launches + depth_run["resize_launches"],
+             launches_by_path={
+                 "phase 34 (the five resizes, checks and timing)": resize_phase_launches,
+                 f"depth pseudo-GT (phase 8: {DEPTH_IMAGES} images, b{DEPTH_BATCH})":
+                     depth_run["resize_launches"]})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,9 +10,11 @@ from unittest import mock
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from weakcube_tpu_torch.models.layers import BatchNorm2d
 from weakcube_tpu_torch.ops import batch_norm_cuda
+from weakcube_tpu_torch.ops import bilinear_resize_cuda
 from weakcube_tpu_torch.ops import flash_attention_cuda
 from weakcube_tpu_torch.ops import nms as nms_ops
 from weakcube_tpu_torch.ops import roi_align as t_ra
@@ -505,16 +507,19 @@ def test_flash_attention_refuses_what_it_does_not_take(card):
 
 def test_small_depth_model_card_matches_cpu(card):
     """Depth Anything V2 ViT-S at 98 px (N = 50) in float32 from one seeded
-    state dict, on the card (K2's float32 path, cuDNN convs with TF32 off)
-    and on the CPU (plain attention): depth within 1e-3 m. 12 launches."""
+    state dict, on the card (K2's float32 path, cuDNN convs with TF32 off,
+    the resize kernel) and on the CPU (plain attention, F.interpolate):
+    depth within 1e-3 m. 12 K2 launches, 5 resize launches."""
     from weakcube_tpu_torch.data.generate_depth_maps import load_model
     m_cpu = load_model(None, "vits", input_size=98, device="cpu", dtype=torch.float32)
     m_gpu = load_model(None, "vits", input_size=98, device=card, dtype=torch.float32)
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 98, 98, 3)).astype(np.float32))
     before = flash_attention_cuda.flash_attention.launches
+    resizes = bilinear_resize_cuda.bilinear_resize.launches
     with torch.inference_mode():
         d_gpu, d_cpu = m_gpu(x.to(card)), m_cpu(x)
     assert flash_attention_cuda.flash_attention.launches == before + 12
+    assert bilinear_resize_cuda.bilinear_resize.launches == resizes + 5
     assert float(d_cpu.std()) > 1e-3
     torch.testing.assert_close(d_gpu.cpu(), d_cpu, atol=1e-3, rtol=0)
 
@@ -834,3 +839,95 @@ def test_batch_norm_refused_card_input_raises(card, case):
     with pytest.raises(ValueError):
         bn(x)
     assert bn_launches() == before and bn.pending is None
+
+
+# ------------------------------------------------- the DPT head's bilinear resize
+# (C, side in, side out): the head's five resizes at ViT-L 518 px, and at
+# ViT-S 98 px (the small float32 model above)
+DPT_RESIZES = [(256, 19, 37), (256, 37, 74), (256, 74, 148), (256, 148, 296), (128, 296, 518)]
+VITS_RESIZES = [(64, 4, 7), (64, 7, 14), (64, 14, 28), (64, 28, 56), (32, 56, 98)]
+
+
+def resize_input(card, N, C, hw, dt, seed, scale=1.0):
+    """(N, C, H, W) channels_last, N(0, scale^2) in dt."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    return (torch.randn((N, *hw, C), generator=g, device=card) * scale).to(dt).permute(0, 3, 1, 2)
+
+
+def check_resize(x, size):
+    """One kernel launch, a new channels_last tensor of x's dtype, ATen's
+    F.interpolate bit for bit."""
+    before = bilinear_resize_cuda.bilinear_resize.launches
+    with torch.inference_mode():
+        got = bilinear_resize_cuda.bilinear_resize(x, size)
+        want = F.interpolate(x, size=size, mode="bilinear", align_corners=True)
+    torch.cuda.synchronize()
+    assert bilinear_resize_cuda.bilinear_resize.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    n_off = int((got != want).sum())
+    assert n_off == 0, f"{n_off} of {got.numel()} elements differ from ATen"
+
+
+@pytest.mark.parametrize("shape", range(len(DPT_RESIZES)))
+@pytest.mark.parametrize("N", [16, 1])
+def test_resize_kernel_is_aten_at_the_head_shapes(card, N, shape):
+    """bf16 at the depth cell's shapes (b16) and at b1."""
+    C, n_in, n_out = DPT_RESIZES[shape]
+    check_resize(resize_input(card, N, C, (n_in, n_in), torch.bfloat16, shape), (n_out, n_out))
+
+
+@pytest.mark.parametrize("shape", range(len(VITS_RESIZES)))
+def test_resize_kernel_is_aten_at_the_small_model_shapes(card, shape):
+    """float32 at ViT-S 98 px's shapes, b2."""
+    C, n_in, n_out = VITS_RESIZES[shape]
+    check_resize(resize_input(card, 2, C, (n_in, n_in), torch.float32, shape), (n_out, n_out))
+
+
+RESIZE_EDGES = {"C3": (3, (13, 17), (50, 33)), "C5 down": (5, (50, 33), (13, 17)),
+                "H_out 1": (24, (9, 11), (1, 40)), "H_in 1": (24, (1, 11), (30, 7)),
+                "one pixel": (16, (1, 1), (5, 5)), "equal": (40, (9, 9), (9, 9)),
+                "large values": (64, (31, 29), (97, 61))}
+
+
+@pytest.mark.parametrize("case", sorted(RESIZE_EDGES) + ["sliced view", "misaligned"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_resize_kernel_is_aten_at_the_edges(card, dtype, case):
+    """Channel counts below a vector (one or two channels a thread), one
+    output or input row, a single pixel, equal sizes, values of 1e4, and
+    inputs whose pixel stride (70) or pointer (one element in) narrow the
+    vector."""
+    dt = getattr(torch, dtype)
+    if case == "sliced view":
+        x = resize_input(card, 2, 70, (21, 23), dt, 1)[:, 4:68]
+        assert bilinear_resize_cuda.vec_width(x) == 2
+        check_resize(x, (40, 44))
+    elif case == "misaligned":
+        flat = torch.randn(2 * 15 * 15 * 64 + 1, device=card).to(dt)
+        x = flat[1:].view(2, 15, 15, 64).permute(0, 3, 1, 2)
+        assert bilinear_resize_cuda.vec_width(x) == 1
+        check_resize(x, (29, 29))
+    else:
+        C, hw_in, hw_out = RESIZE_EDGES[case]
+        check_resize(resize_input(card, 2, C, hw_in, dt, 2, 1e4 if case == "large values"
+                                  else 1.0), hw_out)
+
+
+def test_resize_kernel_refuses_what_it_does_not_take(card):
+    """NCHW, float16, a CPU/CUDA mix of input and output, and an input that
+    asks for a gradient raise ValueError, and nothing is launched."""
+    x = resize_input(card, 2, 16, (5, 5), torch.bfloat16, 3)
+    out = torch.empty((2, 16, 9, 9), dtype=torch.bfloat16, device=card).contiguous(
+        memory_format=torch.channels_last)
+    before = bilinear_resize_cuda.bilinear_resize.launches
+    with pytest.raises(ValueError, match="NCHW"):
+        bilinear_resize_cuda.bilinear_resize(x.contiguous(), (9, 9))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        bilinear_resize_cuda.bilinear_resize(x.half(), (9, 9))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bilinear_resize_cuda.launch(x, out.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bilinear_resize_cuda.launch(x.cpu(), out)
+    with pytest.raises(ValueError, match="gradient"):
+        bilinear_resize_cuda.bilinear_resize(x.float().requires_grad_(), (9, 9))
+    assert bilinear_resize_cuda.bilinear_resize.launches == before

@@ -1,6 +1,6 @@
 """ops/cuda_build.py::KernelLibrary, the one loader of the kernel modules
 (ops/roi_align_cuda.py, flash_attention_cuda.py, nms.py,
-batch_norm_cuda.py), on tiny host C++ sources built with g++: nvcc and the
+batch_norm_cuda.py, bilinear_resize_cuda.py), on tiny host C++ sources built with g++: nvcc and the
 card are not needed to check how a library is built, bound and kept."""
 import ctypes
 import os
@@ -87,19 +87,20 @@ def test_a_kernel_modules_build_log_is_its_loaders(monkeypatch):
 
 
 def test_importing_the_kernel_modules_runs_no_compiler():
-    """Importing the four kernel modules (in a fresh process, with every way
+    """Importing the five kernel modules (in a fresh process, with every way
     to start a compiler made to fail) builds and loads nothing."""
     code = (
         "import subprocess\n"
         "def refuse(*a, **k):\n"
         "    raise AssertionError(f'a process was started: {a[:1]}')\n"
         "subprocess.run = subprocess.Popen = subprocess.check_output = refuse\n"
-        "from weakcube_tpu_torch.ops import batch_norm_cuda, flash_attention_cuda, nms, "
-        "roi_align_cuda\n"
-        "mods = (batch_norm_cuda, flash_attention_cuda, nms, roi_align_cuda)\n"
+        "from weakcube_tpu_torch.ops import batch_norm_cuda, bilinear_resize_cuda, "
+        "flash_attention_cuda, nms, roi_align_cuda\n"
+        "mods = (batch_norm_cuda, bilinear_resize_cuda, flash_attention_cuda, nms, "
+        "roi_align_cuda)\n"
         "assert all(m._library._lib is None and m.build_log == '' for m in mods)\n"
         "print('loaded none of', len(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "loaded none of 4"
+    assert res.stdout.strip() == "loaded none of 5"

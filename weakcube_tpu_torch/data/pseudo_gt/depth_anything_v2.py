@@ -14,7 +14,11 @@ normalised, depth (B, H, W). Inside, tensors are NCHW. The encoder's
 attention goes through `ops/flash_attention_cuda.py::flash_attention`: the
 CUDA kernel on the card, the plain PyTorch version on the CPU. The model
 runs in the dtype of its parameters (bfloat16 on the card for pseudo-GT
-generation); the metric head's sigmoid runs in float32. The forward marks
+generation); the metric head's sigmoid runs in float32. The decoder's
+align_corners bilinear resizes go through
+`ops/bilinear_resize_cuda.py::bilinear_resize`: the CUDA kernel on the card
+(channels_last bfloat16 or float32, as `load_model` keeps the model), the
+plain F.interpolate on the CPU. The forward marks
 the encoder and the decoder with the spans `depth.encoder` and `depth.head`
 (utils/trace.py).
 """
@@ -27,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...models.rcnn3d import resolve_device
+from ...ops.bilinear_resize_cuda import bilinear_resize
 from ...ops.flash_attention_cuda import flash_attention
 from ...utils.trace import span
 
@@ -147,10 +152,11 @@ class ResidualConvUnit(nn.Module):
 
 
 def _resize(x: torch.Tensor, hw: Sequence[int]) -> torch.Tensor:
-    """align_corners=True bilinear, the decoder's only resize mode."""
+    """align_corners=True bilinear, the decoder's only resize mode: five
+    calls a forward, each one kernel launch on the card."""
     if tuple(x.shape[2:]) == tuple(hw):
         return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=True)
+    return bilinear_resize(x, hw)
 
 
 class FeatureFusionBlock(nn.Module):
