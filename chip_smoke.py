@@ -88,6 +88,12 @@ Phases, in the order they run:
      projection's views) beside its bound (k2_bound.flash_attention_bound_s);
      one B16 depth forward under the profiler launches at most 28 layout
      copies (no q, k, v or output copies around K2);
+ 35. K2 with SAM's decomposed relative-position bias at the SAM cell's
+     shapes (b8 at 1024 px, bf16, the views of a fused qkv projection):
+     windowed, B 200 H 16 N 196 (14 x 14), and global, B 8 H 16 N 4096
+     (64 x 64), held to the plain version on a slice, a second launch
+     giving the same bits, the device time per launch beside its bound
+     (k2_relpos_bound.flash_attention_relpos_bound_s);
  29. the recipe's ground pseudo-GT pipeline from phase 8's depth maps
      (re-generated if gone): (a) depth-ransac ground maps on the card
      (data/generate_ground_segmentations.py), their IoU with each scene's
@@ -209,9 +215,10 @@ Phases, in the order they run:
      at 4, --resume to 8 under the profiler (rank 0's NCCL kernels per step
      by kind), images/s, each rank's data, step and mapper ms; the eval CLI
      sharded over all cards on that checkpoint;
- 14. print the kernels line (K1, K1-bwd, K2, NMS, BN, the resize: their
-     launches on every path above, each counted from 0 before it, their
-     largest errors, device ms and bounds) and, last, {"ok": true, "device": {...}}.
+ 14. print the kernels line (K1, K1-bwd, K2, NMS, BN, the resize, K2 with the
+     bias: their launches on every path above, each counted from 0 before
+     it, their largest errors, device ms and bounds) and, last, {"ok": true,
+     "device": {...}}.
 
 The CLI phases before 24 run one process (TPU.MESH_SHAPE [1]), so that the
 script does the same on a machine with several cards.
@@ -248,6 +255,12 @@ RESIZE_REPLACES = ("none: the JAX package's `_resize` (weakcube_tpu/data/pseudo_
                    "depth_anything_v2.py:235) is two XLA matrix products; the port's head "
                    "called ATen's upsample_bilinear2d")
 RESIZE_SOURCE = "weakcube_tpu_torch/csrc/bilinear_resize.cu"
+K2_RELPOS_REPLACES = ("none: the JAX package's SAM (weakcube_tpu/data/pseudo_gt/sam.py:73) "
+                      "adds the bias to einsum logits in XLA; the port's SAM did the same")
+# (name, B, key grid side, launches per b8 request) of SAM-HQ ViT-L's
+# attention at 1024 px: 25 windows an image, 20 windowed and 4 global blocks
+SAM_ATTENTION = (("windowed", 8 * 25, 14, 20), ("global", 8, 64, 4))
+SAM_HEADS = 16
 # (C, side in, side out) of the DPT head's resizes at ViT-L, 518 px
 DPT_RESIZES = ((256, 19, 37), (256, 37, 74), (256, 74, 148), (256, 148, 296), (128, 296, 518))
 DEPTH_BATCH, DEPTH_SIZE, DEPTH_IMAGES = 16, 518, 32
@@ -698,7 +711,8 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
     print(f"[pgt] GroundingDINO Swin-T OGC (BERT-base, 6 + 6 layers, 900 queries) "
           f"{sum(p.numel() for p in gdino.parameters()) / 1e6:.1f} M params, SAM-HQ "
           f"{PGT_SAM_VARIANT} {sum(p.numel() for p in sam.parameters()) / 1e6:.1f} M params, "
-          f"bf16, random weights (seeds 0, 1), built in {time.time() - t:.1f} s")
+          f"bf16, random weights (seeds 0, 1), built in {time.time() - t:.1f} s; SAM's "
+          "attention through K2 with the bias")
     # an artifacts root of its own beside phase 8's depth maps: (d) hands it
     # to the loader and the mapper
     fdir = os.path.join(artifacts_root, "foundation")
@@ -707,10 +721,16 @@ def pseudo_gt_phase(dev, depth_run, artifacts_root, card):
     load = lambda r: synthetic.render_image(r["_scene"])  # noqa: E731
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
+    k2_before = K2.launches
     res_f = ggs.generate(records, os.path.join(fdir, "ground_maps"), "unused", "foundation",
                          artifacts_root=fdir, foundation_models=(gdino, sam), image_loader=load,
                          box_threshold=-1.0, gdino_side=PGT_GDINO_SIDE)
     peak = torch.cuda.max_memory_allocated(dev)
+    # SAM's 24 attentions a forward run through K2 with the bias
+    sam_k2 = depth_run["sam_k2_launches"] = K2.launches - k2_before
+    if sam_k2 != 24 * len(records):
+        fail(f"foundation: K2 launched {sam_k2} times in {len(records)} SAM-HQ forwards, "
+             "expected 24 a forward")
     n_maps = 0
     for r in records:
         path = os.path.join(fdir, "ground_maps", f"{r['image_id']}.npz")
@@ -3037,6 +3057,52 @@ def resize_phase(dev) -> dict:
     return dict(entry, **tot)
 
 
+def relpos_phase(dev) -> dict:
+    """Phase 35: K2 with SAM's decomposed relative-position bias at the SAM
+    cell's two shapes (SAM_ATTENTION; bf16, q, k, v the views of a fused
+    (B, N, 3, H, 64) projection, a N(0, 2) bias): held to the plain version
+    on a slice (the first 8 windows, the first image), a second launch
+    giving the same bits, and its device time per launch beside
+    k2_relpos_bound. Returns the kernels-line entry (ms and bound_ms of a
+    b8 request's 24 launches)."""
+    import torch
+    from harness import k2_relpos_bound
+    from weakcube_tpu_torch.ops import flash_attention_cuda as fac
+    K2, plain = fac.flash_attention, fac.plain
+    gen = torch.Generator(device=dev).manual_seed(35)
+    entry = {"name": "flash_attention with SAM's relative-position bias (flash_fwd_relpos_bf16), "
+                     "a b8 SAM-HQ ViT-L request's 24 launches at 1024 px",
+             "route": "cuda", "source": K2_SOURCE, "replaces": K2_RELPOS_REPLACES,
+             "ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "shapes": {}}
+    for name, B, side, calls in SAM_ATTENTION:
+        N, H = side * side, SAM_HEADS
+        qkv = torch.randn((B, N, 3 * H * 64), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4).unbind(0)
+        rel = tuple(2 * torch.randn((B, H, N, side), generator=gen, device=dev) for _ in "hw")
+        n = min(B, 8) if name == "windowed" else 1
+        with torch.inference_mode():
+            got = K2(q, k, v, 0.125, rel_pos=rel)
+            want = plain(q[:n], k[:n], v[:n], 0.125, tuple(t[:n] for t in rel))
+        err = check_close(f"K2 with the bias, {name} B{B} H{H} N{N} ({side} x {side}), first {n}",
+                          got[:n], want, 2e-2, 2e-2)
+        ms = kernel_device_ms(lambda: K2(q, k, v, 0.125, rel_pos=rel), 20)
+        if not torch.equal(K2(q, k, v, 0.125, rel_pos=rel), got):
+            fail(f"K2 with the bias, {name}: a second launch gave other bits")
+        bound = 1e3 * k2_relpos_bound.flash_attention_relpos_bound_s(B, H, N, 64, side, side)
+        print(f"[timing] K2 with the bias, {name} B{B} H{H} N{N} bf16: {ms:.4f} ms of device "
+              f"time per launch (20 queued behind a sleep kernel); bound {bound:.4f} ms "
+              f"({100 * bound / ms:.1f}% of it); x{calls} a b8 request")
+        entry["shapes"][name] = {"B": B, "N": N, "ms": ms, "bound_ms": bound, "per_request": calls}
+        entry["ms"] += calls * ms
+        entry["bound_ms"] += calls * bound
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        del qkv, q, k, v, rel, got, want
+    print(f"[timing] K2 with the bias, a b8 request's 24 launches: {entry['ms']:.4f} ms device, "
+          f"bound {entry['bound_ms']:.4f} ms ({100 * entry['bound_ms'] / entry['ms']:.1f}%)")
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main() -> None:
     try:
         import torch
@@ -3278,6 +3344,18 @@ def main() -> None:
         "pseudo-GT pipeline (phase 8 → 29): the depth maps the ground maps read":
             depth_run["k2_launches"] + pgt_k2})
 
+    # -- 35. K2 with SAM's relative-position bias at the SAM cell's shapes ------
+    t = time.time()
+    relpos_before = flash_attention_cuda.flash_attention.launches
+    relpos = relpos_phase(dev)
+    relpos = dict(relpos, launches_by_path={
+        "phase 35 (checks and timing)": flash_attention_cuda.flash_attention.launches
+        - relpos_before,
+        f"phase 29 (b): SAM-HQ {PGT_SAM_VARIANT}, one forward an image":
+            depth_run["sam_k2_launches"]})
+    relpos["launches"] = sum(relpos["launches_by_path"].values())
+    print(f"[phase] 35 (K2 with the bias) took {time.time() - t:.1f} s")
+
     # -- 11.-13. the training step ---------------------------------------------
     t = time.time()
     bn_before_12 = (batch_norm_cuda.batch_norm_train.launches
@@ -3399,7 +3477,7 @@ def main() -> None:
              launches_by_path={
                  "phase 34 (the five resizes, checks and timing)": resize_phase_launches,
                  f"depth pseudo-GT (phase 8: {DEPTH_IMAGES} images, b{DEPTH_BATCH})":
-                     depth_run["resize_launches"]})]}))
+                     depth_run["resize_launches"]}), relpos]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -143,3 +143,45 @@ def test_strides_of_unit_dimensions():
     assert flash_attention_cuda._strides(t) == (64, 64, 64)
     v = projection_views(torch.zeros((2, 5, 3 * 4 * 64)), 4)[2]
     assert flash_attention_cuda._strides(v) == (5 * 3 * 4 * 64, 64, 3 * 4 * 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kh,kw", [(14, 14), (4, 6), (3, 1)])
+def test_plain_rel_pos_is_the_explicit_bias_sum(dtype, kh, kw):
+    """The plain version with rel_pos = (bias_h, bias_w) equals softmax over
+    the scores plus the explicit (N, N) bias bias_h[.., j // kw] +
+    bias_w[.., j % kw], written out element by element, in float32 and
+    float64 (float64 stays float64); projection views as the SAM encoder
+    passes them."""
+    rng = np.random.default_rng(kh * 10 + kw)
+    B, H, N = 2, 3, kh * kw
+    x = torch.from_numpy(rng.normal(size=(B, N, 3 * H * 64))).to(dtype)
+    q, k, v = projection_views(x, H)
+    bh = torch.from_numpy(rng.normal(size=(B, H, N, kh))).to(dtype)
+    bw = torch.from_numpy(rng.normal(size=(B, H, N, kw))).to(dtype)
+    got = attention(q, k, v, SCALE, (bh, bw))
+    assert got.dtype == dtype and got.shape == (B, H, N, 64)
+    j = torch.arange(N)
+    bias = bh[..., j // kw] + bw[..., j % kw]                              # (B, H, N, N)
+    s = (q * SCALE) @ k.transpose(-1, -2) + bias
+    want = torch.softmax(s, -1) @ v
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert (got - attention(q, k, v, SCALE)).abs().max() > 1e-2        # the bias counts
+    # the wrapper's CPU path is the plain version, bit for bit, and launches nothing
+    before = flash_attention_cuda.flash_attention.launches
+    assert torch.equal(flash_attention_cuda.flash_attention(q, k, v, SCALE, rel_pos=(bh, bw)),
+                       got)
+    assert flash_attention_cuda.flash_attention.launches == before
+
+
+def test_plain_without_rel_pos_keeps_its_bits():
+    """Without rel_pos the plain version is the unbiased math, bit for bit:
+    q scaled in its own dtype, float32 scores and softmax, the product with
+    v in the input dtype."""
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(x).to(dt) for x in qkv(np.random.default_rng(5), 2, 2, 37))
+        s = torch.matmul((q * SCALE).float(), k.float().transpose(-1, -2))
+        want = torch.matmul(torch.softmax(s, dim=-1).to(dt), v)
+        assert torch.equal(attention(q, k, v, SCALE), want)
+        assert torch.equal(attention(q, k, v, SCALE, None), want)

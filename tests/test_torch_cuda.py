@@ -505,6 +505,88 @@ def test_flash_attention_refuses_what_it_does_not_take(card):
     assert flash_attention_cuda.flash_attention.launches == before
 
 
+def rel_pos_inputs(card, B, H, kh, kw, scale=2.0):
+    """A decomposed relative-position bias for (B, H, kh * kw) queries:
+    float32 (B, H, N, kh) and (B, H, N, kw), N(0, scale)."""
+    g = torch.Generator(device=card).manual_seed(kh * 1000 + kw)
+    N = kh * kw
+    return (scale * torch.randn((B, H, N, kh), generator=g, device=card),
+            scale * torch.randn((B, H, N, kw), generator=g, device=card))
+
+
+# SAM-HQ's shapes at 1024 px (windowed: 14 x 14 tokens, B = 25 windows an
+# image; global: 64 x 64), B x H chosen so that the work tiles do not fill
+# whole rounds of the grid; small and ragged key grids beside them
+RELPOS_SHAPES = {"windowed": (7, 16, 14, 14), "global": (1, 3, 64, 64), "small": (2, 3, 4, 6),
+                 "ragged": (3, 2, 10, 20), "tiny_global": (1, 3, 16, 16)}
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "projection"])
+@pytest.mark.parametrize("shape", sorted(RELPOS_SHAPES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_relpos_matches_plain(card, dtype, shape, layout):
+    """K2 with SAM's decomposed relative-position bias against the plain
+    version's explicit (N, N) sum, at the windowed and global shapes and
+    ragged ones; tolerances as without the bias. One launch per call, and a
+    second launch gives the same bits."""
+    dt = getattr(torch, dtype)
+    B, H, kh, kw = RELPOS_SHAPES[shape]
+    q, k, v = attention_inputs(card, dt, kh * kw, layout, B=B, H=H)
+    rel = rel_pos_inputs(card, B, H, kh, kw)
+    before = flash_attention_cuda.flash_attention.launches
+    got = flash_attention_cuda.flash_attention(q, k, v, 0.125, rel_pos=rel)
+    again = flash_attention_cuda.flash_attention(q, k, v, 0.125, rel_pos=rel)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.flash_attention.launches == before + 2
+    assert got.shape == q.shape and got.dtype == dt and got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, again)
+    want = attention(q, k, v, 0.125, rel)
+    tol = dict(atol=1e-5, rtol=1e-5) if dt == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # the bias moves the output: the unbiased kernel is far from it
+    assert (flash_attention_cuda.flash_attention(q, k, v, 0.125).float() - want.float()
+            ).abs().max() > 0.1
+
+
+def test_flash_attention_relpos_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 2, 24, 64), device=card, dtype=torch.bfloat16)
+    bh, bw = rel_pos_inputs(card, 1, 2, 4, 6)
+    before = flash_attention_cuda.flash_attention.launches
+    for rel, match in (((bh.bfloat16(), bw), "float32"), ((bh, bw.cpu()), "float32"),
+                       ((bh, bw[..., :5]), "key grid"), ((bh[..., :3], bw), "key grid"),
+                       ((bh.transpose(-1, -2).contiguous().transpose(-1, -2), bw),
+                        "contiguous"), ((bh[:, :1], bw), "expected")):
+        with pytest.raises(ValueError, match=match):
+            flash_attention_cuda.flash_attention(q, q, q, 0.125, rel_pos=rel)
+    odd = torch.zeros((1, 2, 15, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="kw even"):
+        flash_attention_cuda.flash_attention(odd, odd, odd, 0.125,
+                                             rel_pos=rel_pos_inputs(card, 1, 2, 5, 3))
+    wide = torch.zeros((1, 1, 4 * 130, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="132"):
+        flash_attention_cuda.flash_attention(wide, wide, wide, 0.125,
+                                             rel_pos=rel_pos_inputs(card, 1, 1, 4, 130))
+    assert flash_attention_cuda.flash_attention.launches == before
+
+
+def test_small_sam_card_matches_cpu(card):
+    """SAM-HQ vit_tiny at 256 px in float32 from one seeded model, on the
+    card (K2's float32 path with the bias, cuDNN with TF32 off) and on the
+    CPU (plain attention): mask logits within 1e-4 of their scale. 12 K2
+    launches a forward."""
+    from weakcube_tpu_torch.data.pseudo_gt import sam as sam_mod
+    m_cpu = sam_mod.init_random_(sam_mod.Sam("vit_tiny", 256), seed=3).eval()
+    m_gpu = sam_mod.init_random_(sam_mod.Sam("vit_tiny", 256), seed=3).to(card).eval()
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 256, 256, 3)).astype(np.float32))
+    boxes = torch.tensor([[[30.0, 100.0, 900.0, 1000.0]], [[0.0, 500.0, 1024.0, 1024.0]]])
+    before = flash_attention_cuda.flash_attention.launches
+    with torch.inference_mode():
+        got, want = m_gpu(x.to(card), boxes.to(card)), m_cpu(x, boxes)
+    assert flash_attention_cuda.flash_attention.launches == before + 12
+    assert got.shape == (2, 1, 64, 64)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
 def test_small_depth_model_card_matches_cpu(card):
     """Depth Anything V2 ViT-S at 98 px (N = 50) in float32 from one seeded
     state dict, on the card (K2's float32 path, cuDNN convs with TF32 off,

@@ -490,3 +490,79 @@ def read_maps(d):
 def read_csv(path):
     with open(path) as f:
         return [row for row in csv.reader(f) if row]
+
+
+# ---------------------------------------------------------------------------
+# the port against the benchmark's plain float32 reference
+# (benchmark/reference/sam_hq.py), vit_tiny at 256 px (a 16 x 16 grid: 4
+# padded 14 x 14 windows and global blocks), on one draw of the benchmark's
+# SAM weights (benchmark/harness/sam_weights.py)
+# ---------------------------------------------------------------------------
+
+def _bench_module(rel):
+    import importlib.util
+    path = os.path.join(os.path.dirname(__file__), "..", "benchmark", rel)
+    spec = importlib.util.spec_from_file_location("bench_" + rel.replace("/", "_")[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def sam_ref_pair():
+    ref_mod = _bench_module("reference/sam_hq.py")
+    weights = _bench_module("harness/sam_weights.py")
+    ref = ref_mod.SamHQ("vit_tiny", 256).eval()
+    sd = weights.make_state_dict(ref, 20260423, "cpu")
+    ref.load_state_dict(sd)
+    port = t_sam.Sam("vit_tiny", 256)
+    port.load_state_dict(sd)
+    rng = np.random.default_rng(24)
+    images = [rng.integers(0, 256, (48 + 9 * i, 64 - 7 * i, 3), dtype=np.uint8) for i in range(3)]
+    boxes = [np.array([2.0 + i, 20.0 + 3 * i, 50.0 - 4 * i, 47.0], np.float32) for i in range(3)]
+    return dict(ref_mod=ref_mod, ref=ref, port=port.eval(), images=images, boxes=boxes)
+
+
+def test_sam_matches_plain_reference(sam_ref_pair):
+    """float32 on both sides, so only the order of float32 sums differs:
+    the HQ token's low-resolution mask logits of sam_masks' forward within
+    1e-4 of their scale, image by image, on the reference's own
+    preprocessing; the masks sam_masks returns are the port's logits > 0,
+    resized to each image. The logits must not be flat."""
+    p = sam_ref_pair
+    want = p["ref_mod"].mask_logits(p["ref"], p["images"], p["boxes"], "cpu")
+    got = []
+    hook = p["port"].register_forward_hook(lambda m, i, out: got.append(out))
+    try:
+        masks = t_gen.sam_masks(p["port"], p["images"], p["boxes"])
+    finally:
+        hook.remove()
+    assert len(got) == 1 and got[0].shape == (3, 1, 64, 64) and got[0].dtype == torch.float32
+    for i, (w, img, m) in enumerate(zip(want, p["images"], masks)):
+        assert float(w.std()) > 0.1 and 0.05 < float((w > 0).float().mean()) < 0.95
+        close(got[0][i], w, F32, f"image {i}")
+        assert m.dtype == bool and m.shape == img.shape[:2]
+        low = (got[0][i, 0] > 0).numpy().astype(np.uint8) * 255
+        want_m = np.asarray(Image.fromarray(low).resize(img.shape[1::-1], Image.NEAREST)) > 127
+        np.testing.assert_array_equal(m, want_m)
+
+
+def test_sam_masks_spans_in_order(sam_ref_pair):
+    """Under a profiler, one sam_masks call records the root sam.batch
+    holding sam.preprocess, sam.encoder, sam.decoder and sam.masks_out in
+    that order, each inside the root, all under the root's id."""
+    from weakcube_tpu_torch.utils import trace as port_trace
+    p = sam_ref_pair
+    port_trace.take()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        t_gen.sam_masks(p["port"], p["images"][:2], p["boxes"][:2])
+    spans = port_trace.take()
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["sam.batch"]
+    root = roots[0]
+    kids = sorted((s for s in spans if s.parent == root.id), key=lambda s: s.start_ns)
+    assert [s.name for s in kids] == ["sam.preprocess", "sam.encoder", "sam.decoder",
+                                      "sam.masks_out"]
+    assert all(s.root == root.id for s in spans)
+    assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in kids)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))

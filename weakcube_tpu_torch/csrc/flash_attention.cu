@@ -67,6 +67,24 @@
 // cores, no TF32): one thread per query row, keys streamed through shared
 // memory, online softmax per key. It serves small float32 models checked
 // against the CPU; the main path runs bf16.
+//
+// A decomposed relative-position bias (ViT-det's, SAM's image encoder):
+// softmax(q k^T * scale + bias_h[n, j / kw] + bias_w[n, j % kw]) v, with
+// float32 bias_h (B, H, N, kh) and bias_w (B, H, N, kw), N = kh * kw. It is
+// a compile-time choice: the unbiased launches run the kernels above under
+// their own names (flash_fwd_bf16, flash_fwd_f32), the biased ones the same
+// bodies instantiated with the bias, flash_fwd_relpos_bf16 and
+// flash_fwd_relpos_f32. The bias is added in float32 to the float32 scores
+// before the running maximum, and no (N, N) tensor exists anywhere: in the
+// bf16 kernel each consumer warp copies the bias rows of its own 16 query
+// rows (kh + kw floats each, times log2(e)) into shared memory at the start
+// of a work tile, and the softmax reads them there, bias_w as one 8-byte
+// pair per two adjacent keys (kw even, so a pair never straddles two rows of
+// the key grid). The rows lie RelStride() floats apart, 8 banks mod 32, so
+// that the pairs of a half-warp's 16 lanes (4 rows, 4 key pairs) fall in 32
+// distinct banks; bias_h starts 4 floats later in rows 4-7 of each 8 for the
+// same reason. At kh + kw = 128 (SAM's global blocks at 1024 px) the rows
+// take 102 KB beside the 112 KB of tiles and rings.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -98,6 +116,8 @@ constexpr int kNumBars = 4 + 4 * kStages;       // full/empty Q (2 each), full/e
 constexpr int kSmemBytes = kSmemTiles + 8 * kNumBars + 1024;  // + 1024-byte alignment
 constexpr int kSchedBar = 1;                    // named barriers 1..: tensor-core turns
 constexpr int kEpiBar = 1 + kConsumers;         // then one per warpgroup for its epilogue
+constexpr int kMaxRelStride = 136;              // floats per bias row in shared memory, at most
+constexpr int kRelRows = 16 * 4 * kConsumers;   // bias rows staged: 16 per consumer warp
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
@@ -295,21 +315,61 @@ __device__ __forceinline__ void rescale(float* acc, const float* corr) {
   }
 }
 
+// This thread's bias rows in shared memory, for the softmax of a biased
+// launch: bias_w of row g at w[0 .. kw), of row g + 8 at w[off8 ..); bias_h
+// of row g at h[0 .. kh), of row g + 8 at h[off8 ..). Scaled by log2(e).
+struct RelRows {
+  const float* w;
+  const float* h;
+  int off8, kh, kw;
+};
+
 // Online softmax of the key tile at k0 (rows g and g + 8 of the warp's 16),
 // in place: S becomes
 // exp2(S * scale_log2 - running max), the running max and this thread's
 // share of the row sums move on, and corr is the factor that carries the
-// earlier tiles' O over to the new max.
+// earlier tiles' O over to the new max. With the bias, S first becomes
+// S * scale_log2 + (bias_h + bias_w) * log2(e), and the rest runs on that
+// at scale 1.
+template <bool kBias>
 __device__ __forceinline__ void online_softmax(float* s, float* row_max, float* row_sum,
                                                float* corr, int k0, int N, int t,
-                                               float scale_log2) {
-  if (k0 + kBK > N) {  // the ragged last tile: keys >= N take no weight
+                                               float scale_log2, const RelRows& rel) {
+  if constexpr (kBias) {
+    // key c = k0 + 8 j + 2 t (+ 1) lies at (c / kw, c % kw) of the key grid
+    int c = k0 + 2 * t;
+    int ih = c / rel.kw, iw = c - ih * rel.kw;
+    const bool ragged = k0 + kBK > N;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int ihc = min(ih, rel.kh - 1);  // keys >= N are masked below
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 bw = *reinterpret_cast<const float2*>(rel.w + r * rel.off8 + iw);
+        const float bh = rel.h[r * rel.off8 + ihc];
+        s[4 * j + 2 * r] = fmaf(s[4 * j + 2 * r], scale_log2, bh + bw.x);
+        s[4 * j + 2 * r + 1] = fmaf(s[4 * j + 2 * r + 1], scale_log2, bh + bw.y);
+      }
+      if (ragged) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + (e & 1) >= N) s[4 * j + e] = -INFINITY;
+      }
+      c += 8;
+      iw += 8;
+      while (iw >= rel.kw) {
+        iw -= rel.kw;
+        ++ih;
+      }
+    }
+  } else if (k0 + kBK > N) {  // the ragged last tile: keys >= N take no weight
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (k0 + j * 8 + 2 * t + (e & 1) >= N) s[4 * j + e] = -INFINITY;
   }
+  const float sl = kBias ? 1.f : scale_log2;
   // four independent chains per row keep the dependent steps short
   float m4[2][4] = {{row_max[0], -INFINITY, -INFINITY, -INFINITY},
                     {row_max[1], -INFINITY, -INFINITY, -INFINITY}};
@@ -330,14 +390,14 @@ __device__ __forceinline__ void online_softmax(float* s, float* row_max, float* 
   float msc[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    corr[r] = ex2((row_max[r] - mx[r]) * scale_log2);
+    corr[r] = ex2((row_max[r] - mx[r]) * sl);
     row_max[r] = mx[r];
-    msc[r] = mx[r] * scale_log2;
+    msc[r] = mx[r] * sl;
   }
   float rs[2][4] = {};
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    s[i] = ex2(fmaf(s[i], scale_log2, -msc[(i >> 1) & 1]));
+    s[i] = ex2(fmaf(s[i], sl, -msc[(i >> 1) & 1]));
     rs[(i >> 1) & 1][(i >> 2) & 3] += s[i];
   }
 #pragma unroll
@@ -356,10 +416,21 @@ struct OutLayout {
   long long sb, sh, sn;  // strides in elements; the last dimension is contiguous
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-               OutLayout ol, int H, int N, int n_work, float scale_log2) {
+// A launch's relative-position bias: bias_h (B, H, N, kh) and bias_w (B, H,
+// N, kw) float32 by their (B, H, N) strides in elements, the last dimension
+// contiguous; `stride` floats per row staged in shared memory.
+struct RelPos {
+  const float* h;
+  const float* w;
+  long long hb, hh, hn, wb, wh, wn;
+  int kh, kw, stride;
+};
+
+template <bool kBias>
+__device__ __forceinline__ void flash_fwd_bf16_body(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    __nv_bfloat16* __restrict__ o, const OutLayout& ol, int H, int N, int n_work,
+    float scale_log2, const RelPos& rp) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
@@ -433,6 +504,13 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     float acc[32];    // O: 8 column tiles of 8 over d
     uint32_t pa[32];  // P in bf16 as 8 A-fragments of 16 keys
     float row_max[2], row_sum[2], corr[2];  // rows g and g + 8; sums are this thread's share
+    // with the bias: this warp's 16 rows of it in shared memory, and this
+    // thread's two (struct RelRows)
+    float* rel_warp = reinterpret_cast<float*>(smem + kSmemTiles + 8 * kNumBars) +
+                      (cw * 4 + warp) * 16 * rp.stride;
+    const RelRows rel = {rel_warp + g * rp.stride,
+                         rel_warp + g * rp.stride + rp.kw + ((g >> 2) & 1) * 4, 8 * rp.stride,
+                         rp.kh, rp.kw};
 
     const int next = cw + 1 < kConsumers ? cw + 1 : 0;  // who takes the tensor cores after us
     if (cw == 0) named_arrive(kSchedBar, 256);  // the first turn is warpgroup 1's
@@ -450,6 +528,24 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       for (int j = 0; j < 32; ++j) acc[j] = 0.f;
       row_max[0] = row_max[1] = -INFINITY;
       row_sum[0] = row_sum[1] = 0.f;
+      if constexpr (kBias) {
+        // the bias rows of this warp's 16 query rows (rows >= N repeat row
+        // N - 1; their outputs are not written), times log2(e)
+        const int row0 = q0 + cw * 64 + warp * 16;
+        const float* gh = rp.h + b * rp.hb + h * rp.hh;
+        const float* gw = rp.w + b * rp.wb + h * rp.wh;
+        __syncwarp();  // every lane is done with the last work tile's rows
+        for (int idx = lane; idx < 16 * rp.kw; idx += 32) {
+          const int r = idx / rp.kw, col = idx - r * rp.kw;
+          rel_warp[r * rp.stride + col] = gw[min(row0 + r, N - 1) * rp.wn + col] * kLog2e;
+        }
+        for (int idx = lane; idx < 16 * rp.kh; idx += 32) {
+          const int r = idx / rp.kh, col = idx - r * rp.kh;
+          rel_warp[r * rp.stride + rp.kw + ((r >> 2) & 1) * 4 + col] =
+              gh[min(row0 + r, N - 1) * rp.hn + col] * kLog2e;
+        }
+        __syncwarp();
+      }
       mbar_wait(full_q(qb), (i >> 1) & 1);
 
       // key tile 0: S alone
@@ -462,7 +558,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         wgmma_wait<0>();
         fence_regs<64>(s);
         release(empty_k(sc), lane);
-        online_softmax(s, row_max, row_sum, corr, 0, N, t, scale_log2);
+        online_softmax<kBias>(s, row_max, row_sum, corr, 0, N, t, scale_log2, rel);
         pack_p(pa, s);
       }
       // key tile it's S is issued together with tile it - 1's P V, and its
@@ -479,7 +575,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         wgmma_wait<1>();
         fence_regs<64>(s);
         release(empty_k(sc), lane);
-        online_softmax(s, row_max, row_sum, corr, it * kBK, N, t, scale_log2);
+        online_softmax<kBias>(s, row_max, row_sum, corr, it * kBK, N, t, scale_log2, rel);
         wgmma_wait<0>();
         fence_regs<32>(acc);
         release(empty_v(sp), lane);
@@ -533,6 +629,22 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+               OutLayout ol, int H, int N, int n_work, float scale_log2) {
+  flash_fwd_bf16_body<false>(tq, tk, tv, o, ol, H, N, n_work, scale_log2, RelPos{});
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_relpos_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                      OutLayout ol, int H, int N, int n_work, float scale_log2,
+                      const __grid_constant__ RelPos rp) {
+  flash_fwd_bf16_body<true>(tq, tk, tv, o, ol, H, N, n_work, scale_log2, rp);
+}
+
 // ---- float32 path -----------------------------------------------------------
 constexpr int kF32Rows = 128;  // query rows (threads) per block
 constexpr int kF32Keys = 32;   // keys per shared tile
@@ -541,10 +653,15 @@ struct F32Layout {
   long long sb[4], sh[4], sn[4];  // q, k, v, o strides in elements
 };
 
-__global__ void __launch_bounds__(kF32Rows)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, F32Layout L, int H, int N,
-              float scale_log2) {
+// With the bias the row's score of key j is s * scale_log2 + (bias_h[j /
+// kw] + bias_w[j % kw]) * log2(e), and the softmax runs at scale 1.
+template <bool kBias>
+__device__ __forceinline__ void flash_fwd_f32_body(const float* __restrict__ q,
+                                                   const float* __restrict__ k,
+                                                   const float* __restrict__ v,
+                                                   float* __restrict__ o, const F32Layout& L,
+                                                   int H, int N, float scale_log2,
+                                                   const RelPos& rp) {
   __shared__ __align__(16) float Ks[kF32Keys][kD];
   __shared__ __align__(16) float Vs[kF32Keys][kD];
 
@@ -562,6 +679,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = 0; d < kD; ++d) qr[d] = qb[row * L.sn[0] + d];
   }
   float m = -INFINITY, l = 0.f;
+  const float sl = kBias ? 1.f : scale_log2;
+  const float* bh = nullptr;
+  const float* bw = nullptr;
+  int ih = 0, iw = 0;  // key j's place in the key grid
+  if constexpr (kBias) {
+    const int r = min(row, N - 1);
+    bh = rp.h + b * rp.hb + h * rp.hh + r * rp.hn;
+    bw = rp.w + b * rp.wb + h * rp.wh + r * rp.wn;
+  }
 
   for (int k0 = 0; k0 < N; k0 += kF32Keys) {
     const int nk = min(kF32Keys, N - k0);
@@ -576,9 +702,16 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < kD; ++d) s = fmaf(qr[d], Ks[j][d], s);
+      if constexpr (kBias) {
+        s = fmaf(s, scale_log2, (bh[ih] + bw[iw]) * kLog2e);
+        if (++iw == rp.kw) {
+          iw = 0;
+          ++ih;
+        }
+      }
       const float mn = fmaxf(m, s);
-      const float corr = exp2f((m - mn) * scale_log2);
-      const float p = exp2f((s - mn) * scale_log2);
+      const float corr = exp2f((m - mn) * sl);
+      const float p = exp2f((s - mn) * sl);
       l = l * corr + p;
 #pragma unroll
       for (int d = 0; d < kD; ++d) acc[d] = fmaf(p, Vs[j][d], acc[d] * corr);
@@ -593,6 +726,20 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float4*>(orow + d) =
           make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
   }
+}
+
+__global__ void __launch_bounds__(kF32Rows)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, F32Layout L, int H, int N,
+              float scale_log2) {
+  flash_fwd_f32_body<false>(q, k, v, o, L, H, N, scale_log2, RelPos{});
+}
+
+__global__ void __launch_bounds__(kF32Rows)
+flash_fwd_relpos_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, F32Layout L, int H,
+                     int N, float scale_log2, RelPos rp) {
+  flash_fwd_f32_body<true>(q, k, v, o, L, H, N, scale_log2, rp);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -635,6 +782,74 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int B, int H, int N, 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The floats per staged bias row: the least S >= kw + kh + 4 with S = 8
+// (mod 32) (the header's bank layout).
+int rel_stride(int kh, int kw) {
+  const int s = kw + kh + 4;
+  return s + (8 - s % 32 + 32) % 32;
+}
+
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+           int head_dim, const long long* strides, float scale, const RelPos* rp,
+           cudaStream_t st) {
+  if (head_dim != HEAD_DIM || N < 1 || B < 1 || H < 1 || (long long)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, o};
+  const int elt = dtype == 1 ? 2 : 4;
+  for (int i = 0; i < 4; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < 3; ++j)
+      if ((strides[3 * i + j] * elt) % 16) return (int)cudaErrorInvalidValue;
+  }
+  const float scale_log2 = scale * kLog2e;
+  if (dtype == 1) {
+    CUtensorMap maps[3];
+    for (int i = 0; i < 3; ++i)
+      if (!make_map(&maps[i], ptrs[i], i ? kBK : kBQ, B, H, N, strides[3 * i], strides[3 * i + 1],
+                    strides[3 * i + 2]))
+        return (int)cudaErrorNotSupported;
+    const int smem = kSmemBytes + (rp ? kRelRows * rp->stride * 4 : 0);
+    cudaError_t err = rp ? cudaFuncSetAttribute(flash_fwd_relpos_bf16,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+                         : cudaFuncSetAttribute(flash_fwd_bf16,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const OutLayout ol = {strides[9], strides[10], strides[11]};
+    int dev = 0, n_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)err;
+    const int n_work = (N + kBQ - 1) / kBQ * B * H;  // one block per SM walks over these
+    const int grid = n_work < n_sm ? n_work : n_sm;
+    __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(o);
+    if (rp)
+      flash_fwd_relpos_bf16<<<grid, kThreads, smem, st>>>(maps[0], maps[1], maps[2], ob, ol, H,
+                                                          N, n_work, scale_log2, *rp);
+    else
+      flash_fwd_bf16<<<grid, kThreads, smem, st>>>(maps[0], maps[1], maps[2], ob, ol, H, N,
+                                                   n_work, scale_log2);
+  } else if (dtype == 0) {
+    F32Layout L;
+    for (int i = 0; i < 4; ++i) {
+      L.sb[i] = strides[3 * i];
+      L.sh[i] = strides[3 * i + 1];
+      L.sn[i] = strides[3 * i + 2];
+    }
+    dim3 grid((N + kF32Rows - 1) / kF32Rows, B * H);
+    const float* qf = reinterpret_cast<const float*>(q);
+    const float* kf = reinterpret_cast<const float*>(k);
+    const float* vf = reinterpret_cast<const float*>(v);
+    float* of = reinterpret_cast<float*>(o);
+    if (rp)
+      flash_fwd_relpos_f32<<<grid, kF32Rows, 0, st>>>(qf, kf, vf, of, L, H, N, scale_log2, *rp);
+    else
+      flash_fwd_f32<<<grid, kF32Rows, 0, st>>>(qf, kf, vf, of, L, H, N, scale_log2);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes by ops/flash_attention_cuda.py.
@@ -647,49 +862,28 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int B, int H, int N, 
 extern "C" int flash_attention_forward(int dtype, const void* q, const void* k, const void* v,
                                        void* o, int B, int H, int N, int head_dim,
                                        const long long* strides, float scale, void* stream) {
-  if (head_dim != HEAD_DIM || N < 1 || B < 1 || H < 1 || (long long)B * H > 65535)
+  return launch(dtype, q, k, v, o, B, H, N, head_dim, strides, scale, nullptr,
+                reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The same with the decomposed relative-position bias: bias_h (B, H, N, kh)
+// and bias_w (B, H, N, kw) float32, N = kh * kw, kw even, kh + kw <= 132,
+// their last dimension contiguous; bias_strides[0..2] the (B, H, N) strides
+// of bias_h, [3..5] those of bias_w, in elements.
+extern "C" int flash_attention_relpos_forward(int dtype, const void* q, const void* k,
+                                              const void* v, void* o, int B, int H, int N,
+                                              int head_dim, const long long* strides,
+                                              float scale, const void* bias_h,
+                                              const void* bias_w, int kh, int kw,
+                                              const long long* bias_strides, void* stream) {
+  if (kh < 1 || kw < 2 || kw % 2 || (long long)kh * kw != N ||
+      rel_stride(kh, kw) > kMaxRelStride || bias_h == nullptr || bias_w == nullptr)
     return (int)cudaErrorInvalidValue;
-  const void* ptrs[4] = {q, k, v, o};
-  const int elt = dtype == 1 ? 2 : 4;
-  for (int i = 0; i < 4; ++i) {
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return (int)cudaErrorInvalidValue;
-    for (int j = 0; j < 3; ++j)
-      if ((strides[3 * i + j] * elt) % 16) return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const float scale_log2 = scale * kLog2e;
-  if (dtype == 1) {
-    CUtensorMap maps[3];
-    for (int i = 0; i < 3; ++i)
-      if (!make_map(&maps[i], ptrs[i], i ? kBK : kBQ, B, H, N, strides[3 * i], strides[3 * i + 1],
-                    strides[3 * i + 2]))
-        return (int)cudaErrorNotSupported;
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    const OutLayout ol = {strides[9], strides[10], strides[11]};
-    int dev = 0, n_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return (int)err;
-    const int n_work = (N + kBQ - 1) / kBQ * B * H;  // one block per SM walks over these
-    flash_fwd_bf16<<<n_work < n_sm ? n_work : n_sm, kThreads, kSmemBytes, st>>>(
-        maps[0], maps[1], maps[2], reinterpret_cast<__nv_bfloat16*>(o), ol, H, N, n_work,
-        scale_log2);
-  } else if (dtype == 0) {
-    F32Layout L;
-    for (int i = 0; i < 4; ++i) {
-      L.sb[i] = strides[3 * i];
-      L.sh[i] = strides[3 * i + 1];
-      L.sn[i] = strides[3 * i + 2];
-    }
-    dim3 grid((N + kF32Rows - 1) / kF32Rows, B * H);
-    flash_fwd_f32<<<grid, kF32Rows, 0, st>>>(
-        reinterpret_cast<const float*>(q), reinterpret_cast<const float*>(k),
-        reinterpret_cast<const float*>(v), reinterpret_cast<float*>(o), L, H, N, scale_log2);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const RelPos rp = {reinterpret_cast<const float*>(bias_h),
+                     reinterpret_cast<const float*>(bias_w),
+                     bias_strides[0], bias_strides[1], bias_strides[2],
+                     bias_strides[3], bias_strides[4], bias_strides[5],
+                     kh, kw, rel_stride(kh, kw)};
+  return launch(dtype, q, k, v, o, B, H, N, head_dim, strides, scale, &rp,
+                reinterpret_cast<cudaStream_t>(stream));
 }

@@ -12,6 +12,8 @@ Methods:
   * foundation: GroundingDINO ("ground." prompt) -> the box with the largest
     logit -> SAM-HQ on that box, from the released checkpoints
     (--gdino-ckpt groundingdino_swint_ogc.pth, --sam-ckpt sam_hq_vit_*.pth).
+    `sam_masks` is the SAM half for one batch of images and their boxes:
+    uint8 host images in, bool host masks of each image's size out.
 
   python -m weakcube_tpu_torch.data.generate_ground_segmentations --synthetic 8 \\
       --out /tmp/ground_maps --artifacts-root /tmp
@@ -30,13 +32,14 @@ import argparse
 import csv
 import os
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.rcnn3d import resolve_device
 from ..ops.plane import ransac_plane
+from ..utils.trace import span
 from .datasets import read_image
 from .pseudo_gt import sam as sam_mod
 from .pseudo_gt.grounding_dino import GroundingDINO, predict_ground_boxes
@@ -98,6 +101,38 @@ def prompt_tokens(device) -> tuple:
     return tokens, tokens > 0
 
 
+def sam_masks(sam: sam_mod.Sam, images: Sequence[np.ndarray],
+              boxes_xyxy: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """One batch of the SAM half of the foundation method: (H, W, 3) uint8
+    host images (numpy arrays or tensors) and one XYXY box per image, in
+    that image's pixels -> each image's (H, W) bool mask on the host.
+
+    preprocess_sam on the host (PIL's BILINEAR resize of the longest side
+    to the model's img_size, padding, SAM's pixel statistics) and the copy
+    to the model's device; Sam.forward under inference_mode, each box scaled
+    to the resized image (SAM's IMG_SIZE space); the low-resolution mask
+    logits thresholded at 0 on the device and copied to the host; each
+    (S/4, S/4) mask resized to its image by PIL's NEAREST, as the JAX
+    package does. Its spans (utils/trace.py): sam.batch around the whole,
+    holding sam.preprocess, sam.encoder and sam.decoder (the forward) and
+    sam.masks_out in order."""
+    from PIL import Image
+    dev = next(sam.parameters()).device
+    images = [np.asarray(img) for img in images]
+    scale = np.array([sam_mod.IMG_SIZE / max(img.shape[:2]) for img in images], np.float32)
+    boxes = np.asarray(boxes_xyxy, np.float32).reshape(len(images), 4) * scale[:, None]
+    with span("sam.batch"):
+        with span("sam.preprocess"):
+            x = torch.from_numpy(sam_mod.preprocess_sam(images, sam.img_size)).to(dev)
+        with torch.inference_mode():
+            logits = sam(x, torch.from_numpy(boxes).to(dev)[:, None])
+        with span("sam.masks_out"):
+            low = (logits[:, 0] > 0).cpu().numpy()
+            return [np.asarray(Image.fromarray(m.astype(np.uint8) * 255).resize(
+                (img.shape[1], img.shape[0]), Image.NEAREST)) > 127
+                for m, img in zip(low, images)]
+
+
 def foundation_ground_mask(gdino: GroundingDINO, sam: sam_mod.Sam, image: np.ndarray,
                            box_threshold: float = BOX_THRESHOLD, gdino_side: int = 768,
                            stats: Optional[Dict[str, list]] = None) -> np.ndarray:
@@ -123,20 +158,14 @@ def foundation_ground_mask(gdino: GroundingDINO, sam: sam_mod.Sam, image: np.nda
     if score < box_threshold:
         return np.zeros((H, W), bool)
     cx, cy, bw, bh = box
-    # cxcywh normalised -> XYXY in SAM's IMG_SIZE space (longest side)
-    s = sam_mod.IMG_SIZE / max(H, W)
-    box_xyxy = np.array([(cx - bw / 2) * W * s, (cy - bh / 2) * H * s,
-                         (cx + bw / 2) * W * s, (cy + bh / 2) * H * s], np.float32)
-    sam_in = torch.from_numpy(sam_mod.preprocess_sam([image])).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    # cxcywh normalised -> XYXY in the image's pixels
+    box_xyxy = np.array([(cx - bw / 2) * W, (cy - bh / 2) * H,
+                         (cx + bw / 2) * W, (cy + bh / 2) * H], np.float32)
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        masks = sam(sam_in, torch.from_numpy(box_xyxy).to(dev)[None, None])
-    m = (masks[0, 0] > 0).cpu().numpy()
+    mask = sam_masks(sam, [image], [box_xyxy])[0]
     if stats is not None:
         stats.setdefault("sam_ms", []).append((time.perf_counter() - t0) * 1e3)
-    return np.asarray(Image.fromarray(m.astype(np.uint8) * 255).resize((W, H), Image.NEAREST)) > 127
+    return mask
 
 
 def generate(records: Sequence[Dict], out_dir: str, depth_dir: str,

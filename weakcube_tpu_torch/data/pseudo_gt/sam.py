@@ -29,6 +29,15 @@ model's img_size), boxes (B, N, 4) XYXY in IMG_SIZE space, masks (B, N,
 S/4, S/4) float32 logits. The model computes in the dtype of its
 parameters; attention logits, the relative-position bias and the softmax
 in at least float32.
+
+The image encoder's attention, windowed and global, goes through
+`ops/flash_attention_cuda.py::flash_attention` with the relative-position
+bias as its two factors (bias_h, bias_w): on the card the kernel K2
+(csrc/flash_attention.cu), which adds them to its float32 scores and never
+forms the (N, N) logits or bias; on the CPU the plain version
+(ops/attention.py), which computes what the JAX module computes. The
+forward's spans (utils/trace.py) are `sam.encoder` and `sam.decoder` (the
+prompt encoder and the mask decoder).
 """
 from __future__ import annotations
 
@@ -39,6 +48,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.flash_attention_cuda import flash_attention
+from ...utils.trace import span
 from .swin import LN_EPS, init_layers_, logits_dtype, same_pad_conv
 
 SAM_SPECS = {
@@ -59,8 +70,10 @@ def _gelu(x):
 
 def _rel_pos_bias(q_hw, k_hw, rel_h, rel_w, q, dim_head):
     """Decomposed relative-position bias (ViT-det): q (B*, qh*qw, dh) ->
-    (B*, qh, qw, kh, kw), in at least float32. The tables are sized from the
-    block's input (2 * size - 1 rows), with no interpolation."""
+    its two factors (bias_h (B*, qh, qw, kh), bias_w (B*, qh, qw, kw)), in at
+    least float32; key (i, j) of the kh x kw grid takes bias_h[..., i] +
+    bias_w[..., j]. The tables are sized from the block's input (2 * size -
+    1 rows), with no interpolation."""
     qh, qw = q_hw
     kh, kw = k_hw
     ld = logits_dtype(q.dtype)
@@ -72,7 +85,7 @@ def _rel_pos_bias(q_hw, k_hw, rel_h, rel_w, q, dim_head):
     q_r = q.reshape(-1, qh, qw, dim_head).to(ld)
     bias_h = torch.einsum("bhwc,hkc->bhwk", q_r, get(rel_h, qh, kh))
     bias_w = torch.einsum("bhwc,wkc->bhwk", q_r, get(rel_w, qw, kw))
-    return bias_h[..., :, None] + bias_w[..., None, :]
+    return bias_h, bias_w
 
 
 class WindowAttention(nn.Module):
@@ -89,12 +102,13 @@ class WindowAttention(nn.Module):
         """x: (B, H, W, D) -> (B, H, W, D)."""
         B, H, W, D = x.shape
         dh = D // self.heads
+        # q, k, v: (B, heads, H*W, dh) views of the projection, no copies
         q, k, v = self.qkv(x).reshape(B, H * W, 3, self.heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
-        attn = ((q * dh ** -0.5) @ k.transpose(-1, -2)).to(logits_dtype(x.dtype))
-        bias = _rel_pos_bias((H, W), (H, W), self.rel_pos_h, self.rel_pos_w,
-                             q.reshape(B * self.heads, H * W, dh), dh)
-        attn = attn + bias.reshape(B, self.heads, H * W, H * W)
-        out = torch.softmax(attn, -1).to(x.dtype) @ v
+        bias_h, bias_w = _rel_pos_bias((H, W), (H, W), self.rel_pos_h, self.rel_pos_w,
+                                       q.reshape(B * self.heads, H * W, dh), dh)
+        rel_pos = (bias_h.reshape(B, self.heads, H * W, H),
+                   bias_w.reshape(B, self.heads, H * W, W))
+        out = flash_attention(q, k, v, dh ** -0.5, rel_pos=rel_pos)
         return self.proj(out.transpose(1, 2).reshape(B, H, W, D))
 
 
@@ -349,11 +363,13 @@ class Sam(nn.Module):
         return self.prompt_encoder.pe_layer.encode(torch.stack([gx, gy], -1).to(dtype))
 
     def forward(self, images, boxes):
-        enc, interm = self.image_encoder(images)
-        dt = enc.dtype
-        image_pe = self.dense_pe(enc.shape[1], logits_dtype(dt), enc.device)
-        prompts = self.prompt_encoder(boxes.to(logits_dtype(dt)))
-        return self.mask_decoder(enc, image_pe.to(dt), prompts.to(dt), interm[0], enc)
+        with span("sam.encoder"):
+            enc, interm = self.image_encoder(images)
+        with span("sam.decoder"):
+            dt = enc.dtype
+            image_pe = self.dense_pe(enc.shape[1], logits_dtype(dt), enc.device)
+            prompts = self.prompt_encoder(boxes.to(logits_dtype(dt)))
+            return self.mask_decoder(enc, image_pe.to(dt), prompts.to(dt), interm[0], enc)
 
 
 def preprocess_sam(images: Sequence[np.ndarray], size: int = None) -> np.ndarray:

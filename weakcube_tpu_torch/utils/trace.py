@@ -13,7 +13,7 @@ halfway through it, and its exit stamps at its end: a span starts at the
 midpoint of the clock read just before and just after the enter, and ends
 just after the exit. Spans nest per thread; the spans of one training step
 or one detection request share the id of their root (as do those of
-one depth batch).
+one depth or SAM batch).
 
 `take()` returns the spans recorded since the last call and empties the
 store, which otherwise grows while a profiler is active.
@@ -43,6 +43,15 @@ The port's spans (fixed names; readers look them up by name):
   depth.head       its DPT decoder
   depth.resize_out each map back to its image's size, cast to float16 and
                    copied to the host, one image at a time
+  sam.batch        data/generate_ground_segmentations.py::sam_masks, one batch
+                   of box-prompted SAM-HQ masks from host images to host
+                   masks (root)
+  sam.preprocess   preprocess_sam on the host and the copy to the device
+  sam.encoder      SAM's ViT-det image encoder (K2 runs inside, with the
+                   relative-position bias)
+  sam.decoder      the prompt encoder and the HQ mask decoder
+  sam.masks_out    the masks thresholded on the device, copied to the host
+                   and resized to each image by NEAREST
 """
 from __future__ import annotations
 
